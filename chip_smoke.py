@@ -1,34 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; none is caught):
 
-1. device  — the card's name and power limit (``nvidia-smi``);
-2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   and print ptxas's register / shared-memory / spill lines;
-3. kernels — each kernel against its plain PyTorch version on
+1. device   — the card's name and power limit (``nvidia-smi``);
+2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together) and print ptxas's
+   register / shared-memory / spill lines;
+3. kernels  — each of the six kernels against its plain PyTorch version on
    ``m4_kron16`` (65,536 rows, the size of SuiteSparse ``kron_g500-logn16``,
-   tuned geometry) and ``m10_ohne2`` (lane 128 pinned), tolerance
-   ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)``; the bitwise invariants
-   (SpMV equals the SpMM column at k = 1, 8, 128 and under bucket
-   padding; ``grid`` equals ``loop`` at k = 256; ``"stable"`` is
-   batch-width invariant); row groups without tiles come out 0;
-4. serving — ``MatrixRegistry(device="cuda")`` admits ``m4_kron16`` with
+   tuned geometry) and ``m10_ohne2`` (lane 128 pinned) at k = 1, 8, 128,
+   256: sums within ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)``,
+   maxima exactly.  The bitwise invariants: SpMV equals the SpMM column
+   (k = 1, 8, 128 and under bucket padding) under ``"fused"`` and
+   ``"partials"``; ``grid`` equals ``loop`` at k = 256; ``"stable"`` is
+   batch-width invariant; the max monoid gives one answer under
+   ``"fused"``, ``"partials"`` and ``"stable"``, equal to a numpy f32 max
+   of ``a * x`` over each row's stored entries on sampled columns.  Row
+   groups without tiles come out 0 (sum and max) and an all-negative row
+   stays negative under max;
+4. serving  — ``MatrixRegistry(device="cuda")`` admits ``m4_kron16`` with
    the heuristic geometry and ``m1_asic320k`` with a measured search
    (CUDA-event probe); ``ServingEngine`` serves mixed k = 1..16 traffic
    over both, synchronous and overlapped.  Every answer is checked against
    a float64 CSR product (``|y - y64| <= 1e-5 * (|A| |x|) + 1e-30``) and
-   bitwise against ``plan.matvec``; both kernels' launch counters must
-   have risen during this phase;
-5. times   — CUDA-event times of each kernel, its plain version and the
-   ``torch.sparse_csr_tensor`` product (a yardstick the port never calls)
-   on ``m4_kron16``, beside the least time the card could take.
+   bitwise against ``plan.matvec``; the fused SpMV/SpMM kernels' launch
+   counters must have risen during this phase;
+5. partials — the same with ``MatrixRegistry(device="cuda",
+   strategy="partials")`` (the measured search with the partials probe);
+   the partials SpMV/SpMM kernels' launch counters must rise;
+6. graph    — GraphSAGE and GCN at the widths of the OGB ``ogbn-arxiv``
+   GraphSAGE baseline (128 input features, 3 layers, hidden 256, 40
+   classes; random weights from a seed) over
+   ``rmat_graph(1 << 16, 79.345703125, seed=4)`` (65,536 nodes, the
+   ``m4_kron16`` structure with unit weights), served through
+   ``plan_aggregator`` under ``"fused"`` and ``"partials"``: SAGE-max,
+   SAGE-mean and GCN over ``normalize_adjacency(add_self_loops(A),
+   "sym")``.  Every aggregation output is checked (sum and mean against a
+   float64 CSR product within ``1e-5 * (|A| |x|)``, max exactly against
+   ``"stable"`` and against numpy on sampled columns); the logits of the
+   two strategies agree within ``rtol=1e-4, atol=1e-4 * max(1,
+   |logits|_inf)``; the max kernels' launch counters must rise;
+7. times    — CUDA-event times of each kernel, its plain version and, for
+   the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick
+   the port never calls) on ``m4_kron16``, beside the least time the card
+   could take.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 """
+import importlib
 import json
 import os
 import subprocess
@@ -43,12 +66,23 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-SOURCE = "src/repro_torch/kernels/csrc/hbp_spmv.cu"
-REPLACES = {
-    "hbp_spmv_fused": "src/repro/kernels/hbp_spmv.py:139",
-    "hbp_spmm_fused": "src/repro/kernels/hbp_spmv.py:202",
+SOURCES = {
+    "hbp_spmv": "src/repro_torch/kernels/csrc/hbp_spmv.cu",
+    "hbp_partials": "src/repro_torch/kernels/csrc/hbp_partials.cu",
+}
+# kernel -> (source, line of the TPU kernel's pl.pallas_call)
+KERNELS = {
+    "hbp_spmv_fused": ("hbp_spmv", "src/repro/kernels/hbp_spmv.py:139"),
+    "hbp_spmm_fused": ("hbp_spmv", "src/repro/kernels/hbp_spmv.py:202"),
+    "hbp_spmm_fused_max": ("hbp_spmv", "src/repro/kernels/hbp_spmv.py:264"),
+    "hbp_spmm_partials_max": ("hbp_partials", "src/repro/kernels/hbp_spmv.py:306"),
+    "hbp_spmv_partials": ("hbp_partials", "src/repro/kernels/hbp_spmv.py:344"),
+    "hbp_spmm_partials": ("hbp_partials", "src/repro/kernels/hbp_spmv.py:385"),
 }
 RTOL = 1e-5
+LOGIT_RTOL = 1e-4
+# GraphSAGE baseline of OGB ogbn-arxiv (examples/nodeproppred/arxiv/gnn.py)
+GNN_DIMS = [128, 256, 256, 40]
 
 
 def fail(msg: str) -> None:
@@ -105,23 +139,80 @@ def max_err_within(y, y_plain, what: str) -> float:
     return err.max().item()
 
 
+def exactly(y, y_plain, what: str) -> float:
+    check(torch.equal(y, y_plain), f"{what}: max kernel is not exactly its plain version")
+    return 0.0
+
+
+def numpy_max_columns(csr, X: np.ndarray, cols) -> np.ndarray:
+    """f32 max of ``a * x`` over each row's stored nonzeros, columns ``cols``
+    of ``X``; 0 for rows with none (the served values are the f32 ``a``)."""
+    a = csr.data.astype(np.float32)
+    starts = csr.indptr[:-1]
+    nonempty = np.diff(csr.indptr) > 0
+    out = np.zeros((csr.shape[0], len(cols)), np.float32)
+    for j, c in enumerate(cols):
+        prod = np.where(a != 0, a * X[csr.indices, c], np.float32(-np.inf))
+        m = np.full(csr.shape[0], -np.inf, np.float32)
+        m[nonempty] = np.maximum.reduceat(prod, starts[nonempty])
+        out[:, j] = np.where(np.isneginf(m), 0.0, m)
+    return out
+
+
+class Float64Csr:
+    """``A`` and ``|A|`` in float64 on the card (the values as served, f32):
+    the reference a sum or mean aggregation is held against."""
+
+    def __init__(self, csr, dev):
+        vals = torch.as_tensor(csr.data.astype(np.float32).astype(np.float64))
+        idx = (torch.as_tensor(csr.indptr, dtype=torch.int64),
+               torch.as_tensor(csr.indices, dtype=torch.int64))
+        self.A = torch.sparse_csr_tensor(*idx, vals, size=csr.shape).to(dev)
+        self.absA = torch.sparse_csr_tensor(*idx, vals.abs(), size=csr.shape).to(dev)
+        self.div = torch.as_tensor(np.maximum(np.diff(csr.indptr), 1), dtype=torch.float64,
+                                   device=dev)[:, None]
+
+    def check(self, y, x, what: str, mean: bool = False) -> None:
+        xd = x.double()
+        y64, mag = self.A @ xd, self.absA @ xd.abs()
+        if mean:
+            y64, mag = y64 / self.div, mag / self.div
+        check(bool(torch.all((y.double() - y64).abs() <= RTOL * mag + 1e-30)),
+              f"{what}: disagrees with the float64 CSR product")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     from repro_torch.core import PartitionConfig, build_tiles, csr_from_dense
     from repro_torch.core import enumerate_configs, tuned_partition_config
     from repro_torch.core.matrices import SUITE_SPECS
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels.hbp_spmv import (
-        hbp_spmm_fused,
-        hbp_spmm_fused_plain,
-        hbp_spmv_fused,
-        hbp_spmv_fused_plain,
+    from repro_torch.graph import (
+        GCN,
+        GraphSAGE,
+        add_self_loops,
+        normalize_adjacency,
+        plan_aggregator,
+        rmat_graph,
     )
+    from repro_torch.kernels import build, ops, ref
+
+    # the kernels' module (``repro_torch.kernels.hbp_spmv`` is also the name
+    # of the ops entry point, which an attribute import would return)
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
     from repro_torch.serving import MatrixRegistry, QoSClass, ServingEngine
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    wrappers = {name: getattr(K, name) for name in KERNELS}
+    plains = {name: getattr(K, name + "_plain") for name in KERNELS}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(names):
+        return {name: wrappers[name].launches for name in names}
 
     # --- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -155,8 +246,8 @@ def main() -> None:
     log(f"[kernels] m4_kron16 {kron.shape} nnz={kron.nnz} cfg={kron_cfg} "
         f"tiles={kron_tiles.n_tiles} stream={kron_tiles.data.nbytes + kron_tiles.cols.nbytes} B "
         f"built in {time.perf_counter() - t0:.1f} s")
-    # one thread walks a whole row-group run: the longest run bounds the
-    # kernels' time from below on this matrix
+    # one thread of the fused kernels walks a whole row-group run: the
+    # longest run bounds their time from below on this matrix
     run_len = np.diff(dt.run_start.cpu().numpy())
     log(f"[kernels] m4_kron16 runs={run_len.size} tiles/run mean={run_len.mean():.1f} "
         f"max={run_len.max()} ({run_len.max() * kron_cfg.lane} serial multiply-adds per thread)")
@@ -164,33 +255,59 @@ def main() -> None:
     ohne_cfg = PartitionConfig(lane=128)
     dt_ohne = ops.device_tiles(build_tiles(ohne, ohne_cfg), dev)
 
-    errs = {}
-    for label, d in (("m4_kron16", dt), ("m10_ohne2", dt_ohne)):
+    errs = {}  # (kernel, matrix, k) -> max abs err against the plain version
+    for label, d, csr in (("m4_kron16", dt, kron), ("m10_ohne2", dt_ohne, ohne)):
         x = torch.randn(d.shape[1], device=dev, generator=g)
-        y = hbp_spmv_fused(d, x)
-        errs[(label, 1)] = max_err_within(y, hbp_spmv_fused_plain(d, x), f"{label} spmv")
-        for k in (8, 128):
+        y = K.hbp_spmv_fused(d, x)
+        errs["hbp_spmv_fused", label, 1] = max_err_within(
+            y, K.hbp_spmv_fused_plain(d, x), f"{label} fused spmv")
+        p = K.hbp_spmv_partials(d, x)
+        errs["hbp_spmv_partials", label, 1] = max_err_within(
+            p, K.hbp_spmv_partials_plain(d, x), f"{label} partials spmv")
+        for k in (1, 8, 128, 256):
             X = torch.randn(d.shape[1], k, device=dev, generator=g)
             c = k // 2
             X[:, c] = x
-            Y = hbp_spmm_fused(d, X)
-            errs[(label, k)] = max_err_within(Y, hbp_spmm_fused_plain(d, X), f"{label} spmm k={k}")
-            check(torch.equal(Y[..., c], y), f"{label}: SpMV != SpMM column at k={k}")
-        Y1 = hbp_spmm_fused(d, x[:, None].contiguous())
-        check(torch.equal(Y1[..., 0], y), f"{label}: SpMV != SpMM at k=1")
-        # through the entry points: bucket padding (5 -> 8) and k tiling
-        y_served = ops.hbp_spmv(d, x)
+            for name in ("hbp_spmm_fused", "hbp_spmm_partials"):
+                Y = wrappers[name](d, X)
+                errs[name, label, k] = max_err_within(
+                    Y, plains[name](d, X), f"{label} {name} k={k}")
+                check(torch.equal(Y[..., c], y if name == "hbp_spmm_fused" else p),
+                      f"{label} {name}: SpMV != SpMM column at k={k}")
+            for name in ("hbp_spmm_fused_max", "hbp_spmm_partials_max"):
+                errs[name, label, k] = exactly(wrappers[name](d, X), plains[name](d, X),
+                                               f"{label} {name} k={k}")
+        # through the entry points: bucket padding (5 -> 8), k tiling, and
+        # the max monoid on every strategy against numpy
         X5 = torch.randn(d.shape[1], 5, device=dev, generator=g)
         X5[:, 3] = x
-        check(torch.equal(ops.hbp_spmm_bucketed(d, X5)[:, 3], y_served),
-              f"{label}: bucket-padded column != SpMV")
         X256 = torch.randn(d.shape[1], 256, device=dev, generator=g)
-        check(torch.equal(ops.hbp_spmm(d, X256, k_tiling="grid"),
-                          ops.hbp_spmm(d, X256, k_tiling="loop")),
-              f"{label}: k=256 grid != loop")
+        for strategy in ("fused", "partials"):
+            y_served = ops.hbp_spmv(d, x, strategy=strategy)
+            check(torch.equal(ops.hbp_spmm_bucketed(d, X5, strategy=strategy)[:, 3], y_served),
+                  f"{label} {strategy}: bucket-padded column != SpMV")
+            for combine in ("sum", "max"):
+                kw = dict(strategy=strategy, combine=combine)
+                check(torch.equal(ops.hbp_spmm(d, X256, k_tiling="grid", **kw),
+                                  ops.hbp_spmm(d, X256, k_tiling="loop", **kw)),
+                      f"{label} {strategy} {combine}: k=256 grid != loop")
+        Xn = X256.cpu().numpy()
+        sampled = (0, 77, 255)
+        want = numpy_max_columns(csr, Xn, sampled)
+        y_max = {s: ops.hbp_spmm(d, X256, strategy=s, combine="max")
+                 for s in ("fused", "partials", "stable")}
+        for s, ym in y_max.items():
+            check(torch.equal(ym, y_max["stable"]), f"{label}: max under {s} != stable")
+            check(np.array_equal(ym[:, list(sampled)].cpu().numpy(), want),
+                  f"{label}: max under {s} != numpy on sampled columns")
+        del y_max, X256
         log(f"[kernels] {label}: max abs err vs plain "
-            + ", ".join(f"k={k}: {e:.3e}" for (lab, k), e in errs.items() if lab == label)
-            + "; bitwise SpMV == SpMM column (k=1, 8, 128, bucket 5->8); grid == loop at k=256")
+            + ", ".join(f"{n} k={k}: {e:.3e}" for (n, lab, k), e in errs.items()
+                        if lab == label and not n.endswith("_max"))
+            + "; max kernels exactly plain at k=1, 8, 128, 256; bitwise SpMV == SpMM column "
+              "(fused and partials, k=1, 8, 128, 256, bucket 5->8); grid == loop at k=256 "
+              "(sum and max); max equal under fused/partials/stable and to numpy on columns "
+            + str(list(sampled)))
     # "stable" (the torch lane chain) is batch-width invariant on the card
     x = torch.randn(dt.shape[1], device=dev, generator=g)
     y_st = ops.hbp_spmv(dt, x, strategy="stable")
@@ -204,51 +321,67 @@ def main() -> None:
     check(torch.equal(ops.hbp_spmm_bucketed(dt, X5, strategy="stable")[:, 0], y_st),
           "stable: bucket-padded column != SpMV")
     log("[kernels] stable: bitwise batch-width invariant at k=1, 8, 128 and bucket 5->8")
-    # row groups that own no tiles come out exactly 0
+    # row groups that own no tiles come out exactly 0; an all-negative row
+    # stays negative under max (the -inf masking, not a 0 from padding)
     rng = np.random.default_rng(2)
     dense = rng.standard_normal((4096, 3000)) * (rng.random((4096, 3000)) < 0.01)
     dense[512:2560] = 0.0
-    holes = build_tiles(csr_from_dense(dense), PartitionConfig(lane=8))
+    dense[100] = -np.abs(dense[100])
+    dense[100, :4] = -1.5
+    holes_csr = csr_from_dense(dense)
+    holes = build_tiles(holes_csr, PartitionConfig(lane=8))
     empty = np.setdiff1d(np.arange(holes.n_rowgroups), holes.rowgroup)
     check(empty.size > 0, "the empty-row matrix has no empty row group")
     dh = ops.device_tiles(holes, dev)
+    empty_t = torch.as_tensor(empty, device=dev)
     Xh = torch.randn(3000, 8, device=dev, generator=g)
-    check(bool(torch.all(hbp_spmm_fused(dh, Xh)[torch.as_tensor(empty, device=dev)] == 0)),
+    Xh[:, 0] = Xh[:, 0].abs() + 0.1  # every product of row 100 is negative here
+    check(bool(torch.all(K.hbp_spmm_fused(dh, Xh)[empty_t] == 0)),
           "empty row groups are not zero (spmm)")
-    check(bool(torch.all(hbp_spmv_fused(dh, Xh[:, 0].contiguous())[
-        torch.as_tensor(empty, device=dev)] == 0)), "empty row groups are not zero (spmv)")
+    check(bool(torch.all(K.hbp_spmv_fused(dh, Xh[:, 0].contiguous())[empty_t] == 0)),
+          "empty row groups are not zero (spmv)")
+    want_h = numpy_max_columns(holes_csr, Xh.cpu().numpy(), range(8))
+    for strategy in ("fused", "partials"):
+        Yh = ops.hbp_spmm(dh, Xh, strategy=strategy)
+        check(bool(torch.all(Yh[512:2560] == 0)), f"{strategy}: empty rows are not zero")
+        Ym = ops.hbp_spmm(dh, Xh, strategy=strategy, combine="max")
+        check(bool(torch.all(Ym[512:2560] == 0)), f"{strategy}: empty rows are not zero (max)")
+        check(float(Ym[100, 0]) < 0, f"{strategy}: the all-negative row lost its sign (max)")
+        check(np.array_equal(Ym.cpu().numpy(), want_h), f"{strategy}: max != numpy")
     kron_empty = kron_tiles.n_rowgroups - len(np.unique(kron_tiles.rowgroup))
-    log(f"[kernels] empty row groups are 0: {empty.size} of {holes.n_rowgroups} "
-        f"(synthetic), m4_kron16 has {kron_empty}")
+    log(f"[kernels] empty row groups are 0 (sum and max, fused and partials): {empty.size} of "
+        f"{holes.n_rowgroups} (synthetic), m4_kron16 has {kron_empty}; the all-negative row "
+        f"stays negative under max ({float(Ym[100, 0]):.4f})")
 
-    # --- 4. serving: the main path ------------------------------------------
+    # --- 4./5. serving: the fused and the partials registry ---------------
     asic = SUITE_SPECS["m1_asic320k"](0)
     candidates = enumerate_configs(
         asic.shape, row_blocks=(512,), col_blocks=(4096,), lanes=(8, 16, 32)
     )
-    hbp_spmv_fused.launches = 0
-    hbp_spmm_fused.launches = 0
-    with tempfile.TemporaryDirectory() as cache:
-        # flight-recorder dumps (if a latency anomaly fires) stay out of the tree
-        os.environ["REPRO_FLIGHT_DIR"] = cache
-        registry = MatrixRegistry(device="cuda", cache_dir=cache, candidates=candidates)
-        check(registry.strategy == "fused", f"default strategy on the card is {registry.strategy}")
+    csrs = {"m4_kron16": kron, "m1_asic320k": asic}
+    served_ref = {}  # per matrix: row of each entry, entry values as served (f32)
+    for key, csr in csrs.items():
+        served_ref[key] = (np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr)),
+                    csr.data.astype(np.float32).astype(np.float64))
+    launches = {}  # kernel -> launches in the phase that drives its path
+
+    def serve_phase(tag: str, cache: str, strategy, kernels) -> None:
+        reset_counts()
+        registry = MatrixRegistry(device="cuda", cache_dir=cache, candidates=candidates,
+                                  strategy=strategy)
+        check(registry.strategy == (strategy or "fused"),
+              f"strategy on the card is {registry.strategy}")
         registry.search = False  # kron16: the nnz-profile heuristic
         plan_k = registry.admit(kron, "m4_kron16")
         registry.search = True  # asic: measured search with the CUDA-event probe
         plan_a = registry.admit(asic, "m1_asic320k")
         check(plan_a.autotune_searched and len(plan_a.provenance["trials"]) == len(candidates),
               "the measured search did not run")
-        log(f"[serving] admitted m4_kron16 cfg={plan_k.cfg} in {plan_k.preprocess_s:.1f} s; "
+        log(f"[{tag}] admitted m4_kron16 cfg={plan_k.cfg} in {plan_k.preprocess_s:.1f} s; "
             f"m1_asic320k searched {len(candidates)} geometries in {plan_a.preprocess_s:.1f} s: "
             + ", ".join(f"lane {t['config']['lane']}: {t['objective_us']} us"
                         for t in plan_a.provenance["trials"]))
         plans = {"m4_kron16": plan_k, "m1_asic320k": plan_a}
-        csrs = {"m4_kron16": kron, "m1_asic320k": asic}
-        ref = {}  # per matrix: row of each entry, entry values as served (f32)
-        for key, csr in csrs.items():
-            ref[key] = (np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr)),
-                        csr.data.astype(np.float32).astype(np.float64))
         bursts = [1, 16, 2, 11, 3, 8, 5, 16]  # 62 requests, batch widths 1..16
         xrng = np.random.default_rng(3)
         for overlap in (False, True):
@@ -271,7 +404,7 @@ def main() -> None:
             for key, x, ticket in sent:
                 y = ticket.result()
                 csr = csrs[key]
-                rows, a = ref[key]
+                rows, a = served_ref[key]
                 xv = x.astype(np.float64)[csr.indices]
                 y64 = np.bincount(rows, weights=a * xv, minlength=csr.shape[0])
                 mag = np.bincount(rows, weights=np.abs(a * xv), minlength=csr.shape[0])
@@ -281,19 +414,107 @@ def main() -> None:
                 check(np.array_equal(y, plans[key].matvec(x).cpu().numpy()),
                       f"{key}: served answer is not bitwise equal to plan.matvec")
             st = eng.stats()
-            log(f"[serving] overlap={overlap}: {len(sent)} requests in "
-                + ", ".join(f"{k}: {st[k]['batches']} batches" for k in plans)
+            log(f"[{tag}] overlap={overlap}: {len(sent)} requests in "
+                + ", ".join(f"{k}: {st[k]['batches']} batches, compute {st[k]['compute_s']:.4f} s, "
+                            f"latency p99 {st[k]['latency_p99_s']:.4f} s" for k in plans)
                 + f"; {wall:.3f} s wall; all answers within the float64 bound and "
                   "bitwise equal to plan.matvec")
-    launches = {
-        "hbp_spmv_fused": hbp_spmv_fused.launches,
-        "hbp_spmm_fused": hbp_spmm_fused.launches,
-    }
-    log(f"[serving] kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+        counts = read_counts(kernels)
+        log(f"[{tag}] kernel launches on this path: {read_counts(KERNELS)}")
+        for name, n in counts.items():
+            check(n > 0, f"{name} was never launched on the {tag} path")
+        launches.update(counts)
 
-    # --- 5. times on m4_kron16 ------------------------------------------------
+    with tempfile.TemporaryDirectory() as cache:
+        # flight-recorder dumps (if a latency anomaly fires) stay out of the tree
+        os.environ["REPRO_FLIGHT_DIR"] = cache
+        serve_phase("serving", cache, None, ("hbp_spmv_fused", "hbp_spmm_fused"))
+        serve_phase("partials", cache, "partials", ("hbp_spmv_partials", "hbp_spmm_partials"))
+
+        # --- 6. graph: GraphSAGE and GCN forwards at full width -------------
+        t0 = time.perf_counter()
+        A = rmat_graph(1 << 16, 79.345703125, seed=4)
+        A_hat = normalize_adjacency(add_self_loops(A), "sym")
+        log(f"[graph] A {A.shape} nnz={A.nnz}, A_hat nnz={A_hat.nnz}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ref64 = {"A": Float64Csr(A, dev), "A_hat": Float64Csr(A_hat, dev)}
+        graphs = {"A": A, "A_hat": A_hat}
+        reset_counts()
+        plans = {}
+        for strategy in ("fused", "partials"):
+            reg = MatrixRegistry(device="cuda", cache_dir=cache, search=False, strategy=strategy)
+            for gname, csr in graphs.items():
+                plans[strategy, gname] = plan = reg.admit(csr, gname)
+                log(f"[graph] {strategy}: admitted {gname} cfg={plan.cfg} "
+                    f"tiles={plan.tiles.n_tiles} in {plan.preprocess_s:.1f} s")
+        gx = torch.Generator(device=dev).manual_seed(5)
+        feats = torch.randn(A.shape[0], GNN_DIMS[0], device=dev, generator=gx)
+        models = {
+            "sage": GraphSAGE(GNN_DIMS, generator=torch.Generator(device=dev).manual_seed(6),
+                              device=dev),
+            "gcn": GCN(GNN_DIMS, generator=torch.Generator(device=dev).manual_seed(7), device=dev),
+        }
+        # (model, aggregation, graph) of each forward
+        forwards = {
+            "sage-max": ("sage", "max", "A"),
+            "sage-mean": ("sage", "mean", "A"),
+            "gcn": ("gcn", "sum", "A_hat"),
+        }
+        widths = set()
+
+        def checked(strategy, op, gname):
+            plan = plans[strategy, gname]
+            agg = plan_aggregator(plan, op=op)
+
+            def f(x):
+                y = agg(x)
+                what = f"{strategy} {op} over {gname} at k={x.shape[1]}"
+                widths.add(x.shape[1])
+                check(y.shape == x.shape and bool(torch.all(torch.isfinite(y))),
+                      f"{what}: bad output")
+                if op == "max":
+                    stable = ops.hbp_spmm(plan.device, x, strategy="stable", combine="max")
+                    check(torch.equal(y, stable), f"{what}: != stable")
+                    cols = (0, x.shape[1] // 2, x.shape[1] - 1)
+                    want = numpy_max_columns(graphs[gname], x.cpu().numpy(), cols)
+                    check(np.array_equal(y[:, list(cols)].cpu().numpy(), want),
+                          f"{what}: != numpy on sampled columns")
+                else:
+                    ref64[gname].check(y, x, what, mean=op == "mean")
+                return y
+
+            return f
+
+        logits = {}
+        fwd_ms = {}
+        with torch.inference_mode():
+            for fname, (mname, op, gname) in forwards.items():
+                for strategy in ("fused", "partials"):
+                    out = models[mname](checked(strategy, op, gname), feats)
+                    check(out.shape == (A.shape[0], GNN_DIMS[-1])
+                          and bool(torch.all(torch.isfinite(out))), f"{fname}: bad logits")
+                    logits[fname, strategy] = out
+                    agg = plan_aggregator(plans[strategy, gname], op=op)
+                    fwd_ms[fname, strategy] = timed_ms(lambda: models[mname](agg, feats), 3, 1)
+                a, b = logits[fname, "fused"], logits[fname, "partials"]
+                diff = (a - b).abs().max().item()
+                tol = LOGIT_RTOL * max(1.0, a.abs().max().item())
+                check(bool(torch.all((a - b).abs() <= LOGIT_RTOL * a.abs() + tol)),
+                      f"{fname}: fused and partials logits disagree (max abs diff {diff:.3e})")
+                log(f"[graph] {fname}: logits [{out.shape[0]}, {out.shape[1]}], "
+                    f"|logits|_inf={a.abs().max().item():.4f}, fused vs partials max abs diff "
+                    f"{diff:.3e}; ms per 3-layer forward: fused "
+                    f"{fwd_ms[fname, 'fused']:.3f}, partials {fwd_ms[fname, 'partials']:.3f}")
+        check({128, 256, 40} <= widths, f"aggregation widths {sorted(widths)}")
+        counts = read_counts(KERNELS)
+        log(f"[graph] every aggregation within its bound (sum/mean) or exact (max) at widths "
+            f"{sorted(widths)}; kernel launches on this path: {counts}")
+        for name in ("hbp_spmm_fused_max", "hbp_spmm_partials_max"):
+            check(counts[name] > 0, f"{name} was never launched on the graph path")
+            launches[name] = counts[name]
+        del plans, logits, ref64
+
+    # --- 7. times on m4_kron16 ------------------------------------------------
     n_rows, n_cols = kron.shape
     A_csr = torch.sparse_csr_tensor(
         torch.as_tensor(kron.indptr, dtype=torch.int64),
@@ -306,38 +527,61 @@ def main() -> None:
     index_bytes = dt.colblock.nbytes + dt.run_start.nbytes + dt.run_rowgroup.nbytes
     stream_bytes = dt.data.nbytes + dt.cols.nbytes + index_bytes
     rows = {}
-    for k in (1, 8, 128):
+    cases = [("hbp_spmv_fused", 1), ("hbp_spmv_partials", 1)] + [
+        (name, k) for k in (8, 128) for name in
+        ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")
+    ]
+    for name, k in cases:
         X = torch.randn(n_cols, k, device=dev, generator=g)
-        if k == 1:
-            x = X[:, 0].contiguous()
-            name = "hbp_spmv_fused"
-            kern, plain = (lambda: hbp_spmv_fused(dt, x)), (lambda: hbp_spmv_fused_plain(dt, x))
-            lib = lambda: A_csr @ x  # noqa: E731
-        else:
-            name = "hbp_spmm_fused"
-            kern, plain = (lambda: hbp_spmm_fused(dt, X)), (lambda: hbp_spmm_fused_plain(dt, X))
-            lib = lambda: A_csr @ X  # noqa: E731
-        ms = timed_ms(kern, 20 if k < 128 else 10)
-        plain_ms = timed_ms(plain, 3, warmup=1)
-        library_ms = timed_ms(lib, 20 if k < 128 else 10)
+        arg = X[:, 0].contiguous() if k == 1 else X
+        kern, plain = wrappers[name], plains[name]
+        ms = timed_ms(lambda: kern(dt, arg), 20 if k < 128 else 10)
+        plain_ms = timed_ms(lambda: plain(dt, arg), 3, warmup=1)
+        # no PyTorch call computes a max-monoid SpMM on CUDA
+        # (torch.sparse.mm(reduce="amax") runs on the CPU only)
+        library_ms = None if name.endswith("_max") else timed_ms(lambda: A_csr @ arg, 20)
         x_bytes, y_bytes = n_cols * k * 4, dt.n_rowgroups * group * k * 4
         bytes_bound = (stream_bytes + x_bytes + y_bytes) / peak_bw * 1e3
         ops_bound = 2.0 * T * group * lane * k / peak_flops * 1e3
         nnz_bound = max((kron.nnz * 8 + x_bytes + n_rows * k * 4) / peak_bw,
                         2.0 * kron.nnz * k / peak_flops) * 1e3
+        source, replaces = KERNELS[name]
         row = {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[("m4_kron16", k)],
+            "name": name, "route": "cuda", "source": SOURCES[source], "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name, "m4_kron16", k],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_bound, ops_bound),
             "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
             "library_ms": library_ms, "matrix": "m4_kron16", "k": k,
             "nnz_bound_ms": nnz_bound, "card": smi_line,
         }
-        rows[k] = row
+        if "partials" in name:
+            # the split's own traffic: the buffer written here and read
+            # back by the combine, and the combine and entry point's time
+            buf = 2 * T * group * k * 4
+            contrib = kern(dt, arg)
+            combine = ref.segment_max_sorted if name.endswith("_max") else ref.segment_sum_sorted
+            view = contrib[..., None] if k == 1 else contrib
+            row["partials_buffer_bytes"] = buf
+            row["partials_buffer_ms"] = buf / peak_bw * 1e3
+            row["combine_ms"] = timed_ms(
+                lambda: combine(view, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths), 10)
+        # the whole entry point: kernel, combine, -inf mapping and unpermute
+        kw = dict(strategy="partials" if "partials" in name else "fused")
+        if k == 1:
+            entry = lambda: ops.hbp_spmv(dt, arg, **kw)  # noqa: E731
+        else:
+            kw["combine"] = "max" if name.endswith("_max") else "sum"
+            entry = lambda: ops.hbp_spmm(dt, arg, **kw)  # noqa: E731
+        row["entry_ms"] = timed_ms(entry, 10)
+        rows[name, k] = row
         log("[times] " + json.dumps(row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    # the kernels line: SpMV at k=1, SpMM at the serving bucket k=8
-    print(json.dumps({"kernels": [rows[1], rows[8]]}))
+    # the kernels line: the SpMV kernels at k=1, the sum SpMM kernels at the
+    # serving bucket k=8, the max kernels at the graph width k=128
+    line = [rows["hbp_spmv_fused", 1], rows["hbp_spmm_fused", 8],
+            rows["hbp_spmm_fused_max", 128], rows["hbp_spmm_partials_max", 128],
+            rows["hbp_spmv_partials", 1], rows["hbp_spmm_partials", 8]]
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

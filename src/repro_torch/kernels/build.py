@@ -4,9 +4,10 @@ Each source is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with :mod:`ctypes`.  Libraries go into ``_build/`` beside this file (a
 directory the repository's ``.gitignore`` lists), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing here runs when the module is imported: the
-package must import on machines with no CUDA toolkit.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs when the module is imported: the package must import on
+machines with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -22,7 +23,10 @@ from typing import Dict
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "build_log"]
 
 _HERE = Path(__file__).parent
-SOURCES: Dict[str, Path] = {"hbp_spmv": _HERE / "csrc" / "hbp_spmv.cu"}
+SOURCES: Dict[str, Path] = {
+    "hbp_spmv": _HERE / "csrc" / "hbp_spmv.cu",
+    "hbp_partials": _HERE / "csrc" / "hbp_partials.cu",
+}
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,6 +40,12 @@ _SIGNATURES = {
     "hbp_spmv": {
         "hbp_spmv_fused_launch": [_ptr] * 7 + [_int] * 5 + [_ptr],
         "hbp_spmm_fused_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
+        "hbp_spmm_fused_max_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
+    },
+    "hbp_partials": {
+        "hbp_spmv_partials_launch": [_ptr] * 5 + [_int] * 5 + [_ptr],
+        "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
+        "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
     },
 }
 
@@ -59,7 +69,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

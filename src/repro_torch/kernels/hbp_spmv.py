@@ -1,21 +1,35 @@
-"""Fused-combine HBP SpMV/SpMM: the Hopper kernels and their plain versions.
+"""HBP SpMV/SpMM: the Hopper kernels and their plain versions.
 
 Each wrapper takes staged tiles (:class:`~repro_torch.kernels.ops.DeviceTiles`)
-and an unpadded right-hand side, and returns the product in hashed row
-order:
+and an unpadded right-hand side.  The fused-combine kernels
+(``csrc/hbp_spmv.cu``) return the product in hashed row order:
 
 * :func:`hbp_spmv_fused` — ``x: f32[n_cols]`` -> ``f32[n_rowgroups, group]``
   (replaces ``_fused_kernel`` / ``hbp_spmv_fused`` in
   ``src/repro/kernels/hbp_spmv.py``);
 * :func:`hbp_spmm_fused` — ``x: f32[n_cols, k]`` ->
   ``f32[n_rowgroups, group, k]``, any k in one launch (replaces
-  ``_fused_spmm_kernel`` / ``hbp_spmm_fused``).
+  ``_fused_spmm_kernel`` / ``hbp_spmm_fused``);
+* :func:`hbp_spmm_fused_max` — the same under the max monoid, ``-inf``
+  where a row has no live entry (replaces ``_fused_spmm_max_kernel`` /
+  ``hbp_spmm_fused_max``).
 
-On a CUDA tensor a wrapper launches its kernel (``csrc/hbp_spmv.cu``,
-whose header note gives the design and what bounds it) or raises; on a
-CPU tensor it runs the plain PyTorch version beside it.  Nothing falls
-back from one to the other.  Each wrapper counts its kernel launches in
-a plain integer attribute, ``launches``.
+The two-phase kernels (``csrc/hbp_partials.cu``) return one partial block
+per tile, ``[n_tiles, group(, k)]``, and leave the combine over each row
+group's run of tiles to the caller (``ops``):
+
+* :func:`hbp_spmv_partials` (replaces ``_partials_kernel`` /
+  ``hbp_spmv_partials``);
+* :func:`hbp_spmm_partials` (replaces ``_partials_spmm_kernel`` /
+  ``hbp_spmm_partials``);
+* :func:`hbp_spmm_partials_max` (replaces ``_partials_spmm_max_kernel`` /
+  ``hbp_spmm_partials_max``), ``-inf`` where a tile row has no live slot.
+
+On a CUDA tensor a wrapper launches its kernel (the sources' header notes
+give the design and what bounds it) or raises; on a CPU tensor it runs the
+plain PyTorch version beside it.  Nothing falls back from one to the
+other.  Each wrapper counts its kernel launches in a plain integer
+attribute, ``launches``.
 
 Slot ``(t, g, l)`` reads x row ``colblock[t] * col_block + cols[t, g, l]``.
 Tile packing only emits tiles of column blocks that hold entries, so
@@ -32,8 +46,16 @@ from . import ref as _ref
 __all__ = [
     "hbp_spmv_fused",
     "hbp_spmm_fused",
+    "hbp_spmm_fused_max",
+    "hbp_spmv_partials",
+    "hbp_spmm_partials",
+    "hbp_spmm_partials_max",
     "hbp_spmv_fused_plain",
     "hbp_spmm_fused_plain",
+    "hbp_spmm_fused_max_plain",
+    "hbp_spmv_partials_plain",
+    "hbp_spmm_partials_plain",
+    "hbp_spmm_partials_max_plain",
 ]
 
 
@@ -56,6 +78,32 @@ def hbp_spmv_fused_plain(dt, x: torch.Tensor) -> torch.Tensor:
     return hbp_spmm_fused_plain(dt, x[:, None])[..., 0]
 
 
+def hbp_spmm_fused_max_plain(dt, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fused max SpMM: the masked lane max of each
+    tile row (:func:`ref.lane_max`), then the max over each run.  Max is
+    exact in any order, so this equals the kernel bitwise."""
+    contrib = _ref.lane_max(dt.colblock, dt.data, dt.cols, x, dt.col_block)
+    return _ref.segment_max_sorted(contrib, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)
+
+
+def hbp_spmm_partials_plain(dt, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the partials SpMM: each tile's ordered lane chain
+    ``[n_tiles, group, k]`` (the kernel fuses each multiply and add, so
+    the two agree to rounding)."""
+    return _ref.lane_chain(dt.colblock, dt.data, dt.cols, x, dt.col_block)
+
+
+def hbp_spmv_partials_plain(dt, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the partials SpMV: the plain partials SpMM at k = 1."""
+    return hbp_spmm_partials_plain(dt, x[:, None])[..., 0]
+
+
+def hbp_spmm_partials_max_plain(dt, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the partials max SpMM: each tile row's masked lane
+    max ``[n_tiles, group, k]``, equal to the kernel bitwise."""
+    return _ref.lane_max(dt.colblock, dt.data, dt.cols, x, dt.col_block)
+
+
 def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
     if x.dim() != ndim or x.shape[0] != dt.shape[1]:
         want = "[n_cols]" if ndim == 1 else "[n_cols, k]"
@@ -71,24 +119,34 @@ def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def _launch(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *extra: int) -> None:
+def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, count: int, *k: int) -> None:
+    """Launch ``fn_name`` of library ``lib`` with the C signature's order:
+    the pointers of ``tensors``, the run or tile ``count``, the tile
+    geometry, ``k`` (SpMM only), the device and the stream."""
     from .build import library
 
-    for t in (dt.data, dt.cols, dt.colblock, dt.run_start, dt.run_rowgroup, x, y):
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{fn_name}: every operand must be contiguous")
     if dt.data.dtype != torch.float32 or dt.cols.dtype != torch.int32:
         raise TypeError(f"{fn_name}: tiles must be f32 data and i32 cols")
     _, group, lane = dt.data.shape
-    n_runs = dt.run_rowgroup.shape[0]
-    err = getattr(library("hbp_spmv"), fn_name)(
-        dt.data.data_ptr(), dt.cols.data_ptr(), dt.colblock.data_ptr(),
-        dt.run_start.data_ptr(), dt.run_rowgroup.data_ptr(), x.data_ptr(),
-        y.data_ptr(), n_runs, group, lane, dt.col_block, *extra, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+    err = getattr(library(lib), fn_name)(
+        *(t.data_ptr() for t in tensors), count, group, lane, dt.col_block, *k,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
+
+
+def _fused(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *k: int) -> None:
+    tensors = (dt.data, dt.cols, dt.colblock, dt.run_start, dt.run_rowgroup, x, y)
+    _launch("hbp_spmv", fn_name, tensors, dt, x, dt.run_rowgroup.shape[0], *k)
+
+
+def _partials(fn_name: str, dt, x: torch.Tensor, out: torch.Tensor, *k: int) -> None:
+    tensors = (dt.data, dt.cols, dt.colblock, x, out)
+    _launch("hbp_partials", fn_name, tensors, dt, x, dt.n_tiles, *k)
 
 
 def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +158,7 @@ def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((dt.n_rowgroups, group), dtype=torch.float32, device=x.device)
     if dt.run_rowgroup.shape[0] == 0:
         return y  # no tiles: nothing to launch
-    _launch("hbp_spmv_fused_launch", dt, x, y)
+    _fused("hbp_spmv_fused_launch", dt, x, y)
     hbp_spmv_fused.launches += 1
     return y
 
@@ -115,10 +173,90 @@ def hbp_spmm_fused(dt, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((dt.n_rowgroups, group, k), dtype=torch.float32, device=x.device)
     if dt.run_rowgroup.shape[0] == 0 or k == 0:
         return y
-    _launch("hbp_spmm_fused_launch", dt, x, y, k)
+    _fused("hbp_spmm_fused_launch", dt, x, y, k)
     hbp_spmm_fused.launches += 1
     return y
 
 
-hbp_spmv_fused.launches = 0
-hbp_spmm_fused.launches = 0
+def hbp_spmm_fused_max(dt, x: torch.Tensor) -> torch.Tensor:
+    """Fused-combine HBP SpMM under the max monoid, hashed row order
+    ``[n_rowgroups, group, k]``.
+
+    The output is filled with ``-inf`` before the launch, so row groups
+    that own no tiles (which the kernel never writes) carry the monoid's
+    identity like rows with no live entry; ``ops`` maps ``-inf`` to 0 once,
+    after assembly, and the plain version gives the same bits.
+    """
+    _check(dt, x, 2, "hbp_spmm_fused_max")
+    if x.device.type == "cpu":
+        return hbp_spmm_fused_max_plain(dt, x)
+    k = x.shape[1]
+    group = dt.data.shape[1]
+    y = torch.full(
+        (dt.n_rowgroups, group, k), float("-inf"), dtype=torch.float32, device=x.device
+    )
+    if dt.run_rowgroup.shape[0] == 0 or k == 0:
+        return y
+    _fused("hbp_spmm_fused_max_launch", dt, x, y, k)
+    hbp_spmm_fused_max.launches += 1
+    return y
+
+
+def _partials_out(dt, x: torch.Tensor, *k: int) -> torch.Tensor:
+    # every element is written by the kernel: no fill needed
+    group = dt.data.shape[1]
+    return torch.empty((dt.n_tiles, group, *k), dtype=torch.float32, device=x.device)
+
+
+def hbp_spmv_partials(dt, x: torch.Tensor) -> torch.Tensor:
+    """Partials HBP SpMV: one partial vector per tile, ``[n_tiles, group]``."""
+    _check(dt, x, 1, "hbp_spmv_partials")
+    if x.device.type == "cpu":
+        return hbp_spmv_partials_plain(dt, x)
+    out = _partials_out(dt, x)
+    if dt.n_tiles == 0:
+        return out
+    _partials("hbp_spmv_partials_launch", dt, x, out)
+    hbp_spmv_partials.launches += 1
+    return out
+
+
+def hbp_spmm_partials(dt, x: torch.Tensor) -> torch.Tensor:
+    """Partials HBP SpMM: one partial block per tile, ``[n_tiles, group, k]``."""
+    _check(dt, x, 2, "hbp_spmm_partials")
+    if x.device.type == "cpu":
+        return hbp_spmm_partials_plain(dt, x)
+    k = x.shape[1]
+    out = _partials_out(dt, x, k)
+    if dt.n_tiles == 0 or k == 0:
+        return out
+    _partials("hbp_spmm_partials_launch", dt, x, out, k)
+    hbp_spmm_partials.launches += 1
+    return out
+
+
+def hbp_spmm_partials_max(dt, x: torch.Tensor) -> torch.Tensor:
+    """Partials HBP SpMM under the max monoid: each tile row's masked lane
+    max, ``[n_tiles, group, k]``, ``-inf`` where it has no live slot."""
+    _check(dt, x, 2, "hbp_spmm_partials_max")
+    if x.device.type == "cpu":
+        return hbp_spmm_partials_max_plain(dt, x)
+    k = x.shape[1]
+    out = _partials_out(dt, x, k)
+    if dt.n_tiles == 0 or k == 0:
+        return out
+    _partials("hbp_spmm_partials_max_launch", dt, x, out, k)
+    hbp_spmm_partials_max.launches += 1
+    return out
+
+
+for _wrapper in (
+    hbp_spmv_fused,
+    hbp_spmm_fused,
+    hbp_spmm_fused_max,
+    hbp_spmv_partials,
+    hbp_spmm_partials,
+    hbp_spmm_partials_max,
+):
+    _wrapper.launches = 0
+del _wrapper

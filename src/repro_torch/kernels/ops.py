@@ -4,11 +4,20 @@
 once (:func:`device_tiles`), launch the requested strategy and undo the
 hash permutation:
 
-* ``"fused"`` — the hand-written CUDA kernels of :mod:`.hbp_spmv` on a
-  CUDA device (their plain PyTorch versions on the CPU);
+* ``"fused"`` — the hand-written fused-combine CUDA kernels of
+  :mod:`.hbp_spmv` on a CUDA device (their plain PyTorch versions on the
+  CPU);
+* ``"partials"`` — the paper's two-phase split: the hand-written partials
+  kernels of :mod:`.hbp_spmv` write one partial block per tile, then a
+  deterministic segment sum (or max) over each row group's run combines
+  them;
 * ``"stable"`` — the ordered lane chain of :mod:`.ref`, whose results are
   bitwise invariant to batch width and bucket padding on every device;
 * ``"reference"`` — the einsum oracle of :mod:`.ref`.
+
+``hbp_spmm(..., combine="max")`` runs the max monoid of GNN max
+aggregation on every strategy (the fused or partials max kernels, or the
+masked lane max of :mod:`.ref` under ``"stable"``/``"reference"``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card present they raise rather than fall back.
@@ -41,6 +50,7 @@ __all__ = [
     "K_CHUNK",
     "K_TILINGS",
     "STRATEGIES",
+    "COMBINES",
     "check_strategy",
     "blocked_vector",
     "blocked_matrix",
@@ -62,16 +72,15 @@ K_CHUNK = 128
 # entries written under either stay valid; the two give the same bits.
 K_TILINGS = ("grid", "loop")
 
-STRATEGIES = ("fused", "stable", "reference")
+STRATEGIES = ("fused", "partials", "stable", "reference")
 
-# not yet ported: each raises NotImplementedError naming its ROADMAP item
-_DEFERRED = {
-    "partials": "strategy='partials' (the paper's two-phase split) is not "
-    "ported yet: ROADMAP queue 2, items 3-4",
-    "max": "combine='max' (the GNN max monoid) is not ported yet: "
-    "ROADMAP queue 1, item 6 and queue 2, items 5-6",
-    "argmax": "hbp_spmm_argmax is not ported yet: ROADMAP queue 1, item 6",
-}
+COMBINES = ("sum", "max")
+
+# not yet ported: raises NotImplementedError naming its ROADMAP item
+_DEFERRED_ARGMAX = (
+    "hbp_spmm_argmax (the max SpMM with winner tracking) belongs to the "
+    "training slice of the port, not ported yet: ROADMAP queue 1, item 6"
+)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -215,8 +224,10 @@ def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) 
 
     The tile stream (data f32 + cols i32 + the per-tile column block and
     the run index) is paid once per stream pass; each stored slot gathers
-    one f32 of x per RHS column; the output block is written once.  A
-    model, not a measurement: it assumes no cache reuse of the gathers.
+    one f32 of x per RHS column; the output block is written once.  Under
+    ``"partials"`` the per-tile partials buffer (``T * group * k`` f32) is
+    written by the kernel and read back by the combine.  A model, not a
+    measurement: it assumes no cache reuse of the gathers.
     """
     passes = stream_passes(k, strategy, k_tiling)
     stream = dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes
@@ -225,15 +236,18 @@ def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) 
     gathers = dt.data.numel() * k * 4
     group = dt.data.shape[1]
     out = dt.n_rowgroups * group * k * 4
-    return int(passes * stream + gathers + out)
+    partials = 2 * dt.n_tiles * group * k * 4 if strategy == "partials" else 0
+    return int(passes * stream + gathers + out + partials)
 
 
-def _record_launch(dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling: str) -> None:
+def _record_launch(
+    dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling: str, combine: str = "sum"
+) -> None:
     """Gated kernel-traffic accounting: one bump per entry-point call."""
     if not obs.enabled():
         return
     obs.counter(
-        "kernels.launches", op=op, strategy=strategy, k_tiling=k_tiling, combine="sum"
+        "kernels.launches", op=op, strategy=strategy, k_tiling=k_tiling, combine=combine
     ).inc()
     obs.counter("kernels.traversals").inc(stream_passes(k, strategy, k_tiling))
     obs.counter("kernels.bytes_modeled").inc(modeled_launch_bytes(dt, k, strategy, k_tiling))
@@ -243,8 +257,6 @@ def _record_launch(dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling:
 
 def check_strategy(strategy: str, k_tiling: str = "grid") -> None:
     """Raise for a strategy or contract this package does not serve."""
-    if strategy == "partials":
-        raise NotImplementedError(_DEFERRED["partials"])
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (expected one of {STRATEGIES})")
     if k_tiling not in K_TILINGS:
@@ -287,7 +299,7 @@ def hbp_spmv(
     tiles: HBPTiles | DeviceTiles,
     x,
     *,
-    strategy: Literal["fused", "stable", "reference"] = "fused",
+    strategy: Literal["fused", "partials", "stable", "reference"] = "fused",
     n_rowgroups: Optional[int] = None,
     n_rows: Optional[int] = None,
     col_block: Optional[int] = None,
@@ -309,6 +321,14 @@ def hbp_spmv(
         return torch.zeros(dt.shape[0], dtype=torch.float32, device=dt.device)
     if strategy == "fused":
         y_hashed = _k.hbp_spmv_fused(dt, x)
+    elif strategy == "partials":
+        # the k = 1 case of the partials SpMM: the same partials and the
+        # same run combine, so a vector served alone gets the bits of its
+        # column in any batched launch
+        y_hashed = _ref.segment_sum_sorted(
+            _k.hbp_spmv_partials(dt, x)[..., None], dt.rowgroup, dt.n_rowgroups,
+            dt.rg_lengths,
+        )[..., 0]
     elif strategy == "reference":
         y_hashed = _ref.hbp_spmv_hashed_ref(
             dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_vector(x, dt.col_block),
@@ -323,10 +343,31 @@ def hbp_spmv(
     return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
 
 
-def _spmm_hashed(dt: DeviceTiles, x: torch.Tensor, strategy: str) -> torch.Tensor:
-    """One SpMM call on ``strategy``, hashed row order ``[n_rg, group, k]``."""
+def _spmm_hashed(dt: DeviceTiles, x: torch.Tensor, strategy: str, combine: str) -> torch.Tensor:
+    """One SpMM call on ``strategy``, hashed row order ``[n_rg, group, k]``.
+
+    Under ``combine="max"`` rows with no live entry, and row groups with
+    no tiles, carry the monoid's identity ``-inf``; the caller maps it to
+    0 once, after assembly."""
+    if combine == "max":
+        if strategy == "fused":
+            return _k.hbp_spmm_fused_max(dt, x)
+        if strategy == "partials":
+            return _ref.segment_max_sorted(
+                _k.hbp_spmm_partials_max(dt, x), dt.rowgroup, dt.n_rowgroups, dt.rg_lengths
+            )
+        # max is exact in any order: the masked lane max is "stable" and
+        # "reference" at once
+        return _ref.hbp_spmm_hashed_max(
+            dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_matrix(x, dt.col_block),
+            n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
+        )
     if strategy == "fused":
         return _k.hbp_spmm_fused(dt, x)
+    if strategy == "partials":
+        return _ref.segment_sum_sorted(
+            _k.hbp_spmm_partials(dt, x), dt.rowgroup, dt.n_rowgroups, dt.rg_lengths
+        )
     fn = _ref.hbp_spmm_hashed_stable if strategy == "stable" else _ref.hbp_spmm_hashed_ref
     return fn(
         dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_matrix(x, dt.col_block),
@@ -338,8 +379,8 @@ def hbp_spmm(
     tiles: HBPTiles | DeviceTiles,
     x,  # [n_cols, k]
     *,
-    strategy: Literal["fused", "stable", "reference"] = "fused",
-    combine: Literal["sum"] = "sum",
+    strategy: Literal["fused", "partials", "stable", "reference"] = "fused",
+    combine: Literal["sum", "max"] = "sum",
     n_rowgroups: Optional[int] = None,
     n_rows: Optional[int] = None,
     col_block: Optional[int] = None,
@@ -351,30 +392,37 @@ def hbp_spmm(
     ``k_tiling="grid"`` serves any k in one call; ``"loop"`` is a host
     loop of ``K_CHUNK``-wide calls.  Each output column is computed
     independently of the others, so both give the same result.
+
+    ``combine`` selects the reduction monoid: ``"sum"`` is the standard
+    SpMM; ``"max"`` computes ``Y[i, c] = max_j A[i, j] * X[j, c]`` over
+    A's stored nonzero entries, 0 for rows with none (GNN max
+    aggregation).
     """
-    if combine == "max":
-        raise NotImplementedError(_DEFERRED["max"])
-    if combine != "sum":
-        raise ValueError(f"unknown combine {combine!r} (expected 'sum')")
+    if combine not in COMBINES:
+        raise ValueError(f"unknown combine {combine!r} (expected one of {COMBINES})")
     check_strategy(strategy, k_tiling)
     dt, x = _resolve(tiles, x, device, n_rowgroups, n_rows, col_block)
     if x.dim() != 2:
         raise ValueError(f"X must be [n_cols, k], got shape {tuple(x.shape)}")
     k = x.shape[1]
-    _record_launch(dt, k, op="spmm", strategy=strategy, k_tiling=k_tiling)
+    _record_launch(dt, k, op="spmm", strategy=strategy, k_tiling=k_tiling, combine=combine)
     if dt.n_tiles == 0:  # empty matrix: Y == 0
         return torch.zeros((dt.shape[0], k), dtype=torch.float32, device=dt.device)
     x = x.contiguous()
     if k_tiling == "grid" or k <= K_CHUNK:
-        y_hashed = _spmm_hashed(dt, x, strategy)
+        y_hashed = _spmm_hashed(dt, x, strategy, combine)
     else:
         y_hashed = torch.cat(
             [
-                _spmm_hashed(dt, x[:, lo : lo + K_CHUNK].contiguous(), strategy)
+                _spmm_hashed(dt, x[:, lo : lo + K_CHUNK].contiguous(), strategy, combine)
                 for lo in range(0, k, K_CHUNK)
             ],
             dim=-1,
         )
+    if combine == "max":
+        # rows with no live entry hold the identity; they aggregate to 0
+        # (the convention for isolated graph nodes)
+        y_hashed = y_hashed.masked_fill_(torch.isneginf(y_hashed), 0.0)
     return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
 
 
@@ -402,10 +450,11 @@ def hbp_spmm_bucketed(
     """k-padded SpMM: pad the RHS block with zero columns to the next
     bucket width, launch :func:`hbp_spmm`, slice the real columns back out.
 
-    Under ``"fused"`` and ``"stable"`` the surviving columns are bitwise
-    identical to the unpadded call: each column is computed on its own.
-    This is the entry the serving micro-batcher routes coalesced blocks
-    through.
+    Under ``"fused"``, ``"partials"`` and ``"stable"`` the surviving
+    columns are bitwise identical to the unpadded call, and under
+    ``combine="max"`` on every strategy: each column is computed on its
+    own.  This is the entry the serving micro-batcher routes coalesced
+    blocks through.
     """
     x = torch.as_tensor(x, dtype=torch.float32)
     k = x.shape[1]
@@ -416,5 +465,6 @@ def hbp_spmm_bucketed(
 
 
 def hbp_spmm_argmax(*args, **kwargs):
-    """Max-monoid SpMM with winner tracking — not ported yet."""
-    raise NotImplementedError(_DEFERRED["argmax"])
+    """Max-monoid SpMM with winner tracking — the training slice's, not
+    ported yet."""
+    raise NotImplementedError(_DEFERRED_ARGMAX)

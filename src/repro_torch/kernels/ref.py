@@ -2,7 +2,8 @@
 
 Torch counterparts of the JAX package's jnp oracles (``repro.kernels.ref``):
 the einsum reference, the batch-width-invariant ``"stable"`` lane chain,
-and the hash-order ``unpermute``.  They run on any device.
+the max-monoid lane chain, and the hash-order ``unpermute``.  They run on
+any device.
 
 The row-group combine never uses ``index_add_``/``scatter_add_``: on CUDA
 those are atomic, so their summation order — and the result's bits —
@@ -19,6 +20,7 @@ import torch
 
 __all__ = [
     "segment_sum_sorted",
+    "segment_max_sorted",
     "tile_contrib_ref",
     "hbp_spmv_hashed_ref",
     "tile_contrib_spmm_ref",
@@ -26,8 +28,21 @@ __all__ = [
     "lane_chain",
     "tile_contrib_spmm_stable",
     "hbp_spmm_hashed_stable",
+    "lane_max",
+    "tile_contrib_spmm_max",
+    "hbp_spmm_hashed_max",
     "unpermute",
 ]
+
+
+def _run_lengths(rowgroup, n_rowgroups, lengths):
+    """Tiles per row group, counted from a sorted ``rowgroup`` unless given."""
+    if lengths is not None:
+        return lengths
+    rg = rowgroup.long()
+    if rg.numel() > 1 and bool((rg[1:] < rg[:-1]).any()):
+        raise ValueError("rowgroup must be sorted for the run combine")
+    return torch.bincount(rg, minlength=n_rowgroups)
 
 
 def segment_sum_sorted(
@@ -44,14 +59,31 @@ def segment_sum_sorted(
     which must then be sorted.
     """
     checked = lengths is not None  # staged lengths were validated on the host
-    if lengths is None:
-        rg = rowgroup.long()
-        if rg.numel() > 1 and bool((rg[1:] < rg[:-1]).any()):
-            raise ValueError("rowgroup must be sorted for the run combine")
-        lengths = torch.bincount(rg, minlength=n_rowgroups)
+    lengths = _run_lengths(rowgroup, n_rowgroups, lengths)
     if contrib.shape[0] == 0:
         return contrib.new_zeros((n_rowgroups,) + tuple(contrib.shape[1:]))
     return torch.segment_reduce(contrib, "sum", lengths=lengths, axis=0, unsafe=checked)
+
+
+def segment_max_sorted(
+    contrib: torch.Tensor,  # [T, ...], sorted by row group
+    rowgroup: torch.Tensor,  # [T], non-decreasing
+    n_rowgroups: int,
+    lengths: Optional[torch.Tensor] = None,  # i64[n_rowgroups]: tiles per group
+) -> torch.Tensor:
+    """Segment max over row-group runs -> ``[n_rowgroups, ...]``.
+
+    The max is exact in any order; groups with no tiles come out ``-inf``
+    (the monoid's identity, passed explicitly as the reduction's initial
+    value), for the caller to map to 0 after assembly.
+    """
+    checked = lengths is not None
+    lengths = _run_lengths(rowgroup, n_rowgroups, lengths)
+    if contrib.shape[0] == 0:
+        return contrib.new_full((n_rowgroups,) + tuple(contrib.shape[1:]), float("-inf"))
+    return torch.segment_reduce(
+        contrib, "max", lengths=lengths, axis=0, unsafe=checked, initial=float("-inf")
+    )
 
 
 def _gather(x_flat, colblock, cols, col_block):
@@ -140,6 +172,56 @@ def hbp_spmm_hashed_stable(
     """Full batch-width-invariant SpMM + combine, ``[n_rowgroups, group, k]``."""
     contrib = tile_contrib_spmm_stable(colblock, data, cols, x_blocked)
     return segment_sum_sorted(contrib, rowgroup, n_rowgroups, lengths)
+
+
+def lane_max(
+    colblock: torch.Tensor,  # i32[T]
+    data: torch.Tensor,  # f32[T, group, lane]
+    cols: torch.Tensor,  # i32[T, group, lane]
+    x_flat: torch.Tensor,  # f32[n_x, k]: x rows in global column order
+    col_block: int,
+) -> torch.Tensor:
+    """Max-monoid contributions ``[T, group, k]``: per tile row, the max of
+    ``a * x`` over its live slots, ``-inf`` where it has none.
+
+    A slot is live iff its stored value is nonzero: padded slots and
+    explicitly stored zeros are masked to ``-inf`` (the identity of
+    ``max``) instead of contributing ``0 * x = 0``, which would beat every
+    all-negative row.  ``max`` is exact, so this one chain is the plain
+    version, the ``"stable"``/``"reference"`` path and the oracle at once.
+    """
+    base = colblock.long()[:, None] * col_block  # [T, 1]
+    cols = cols.long()
+    neg = torch.tensor(float("-inf"), dtype=x_flat.dtype, device=x_flat.device)
+
+    def term(lane):
+        d = data[:, :, lane, None]  # [T, group, 1]
+        return torch.where(d != 0, d * x_flat[base + cols[:, :, lane]], neg)
+
+    acc = term(0)
+    for lane in range(1, data.shape[2]):
+        acc = torch.maximum(acc, term(lane))
+    return acc
+
+
+def tile_contrib_spmm_max(
+    colblock, data, cols, x_blocked: torch.Tensor  # f32[n_col_blocks, col_block, k]
+) -> torch.Tensor:
+    """Max-monoid SpMM contributions ``[T, group, k]`` (``-inf`` where a tile
+    row has no live slot)."""
+    n_cb, col_block, k = x_blocked.shape
+    return lane_max(colblock, data, cols, x_blocked.reshape(n_cb * col_block, k), col_block)
+
+
+def hbp_spmm_hashed_max(
+    rowgroup, colblock, data, cols, x_blocked, *, n_rowgroups: int, lengths=None
+) -> torch.Tensor:
+    """Max-monoid SpMM + combine, hashed row order ``[n_rowgroups, group, k]``.
+
+    Rows with no live entry (and row groups with no tiles) are ``-inf``,
+    the monoid's identity, for the caller to map to 0."""
+    contrib = tile_contrib_spmm_max(colblock, data, cols, x_blocked)
+    return segment_max_sorted(contrib, rowgroup, n_rowgroups, lengths)
 
 
 def unpermute(y_hashed: torch.Tensor, perm: torch.Tensor, n_rows: int) -> torch.Tensor:

@@ -161,7 +161,10 @@ def spmm_probe(
     k: int = 8, strategy: str = "stable", k_tiling: str = "grid", device="cpu"
 ) -> Probe:
     """The default serving objective: one steady-state k-wide SpMM launch
-    on ``device``.  The device type is part of the fingerprint."""
+    on ``device`` under ``strategy`` (any of ``ops.STRATEGIES``, the
+    ``"partials"`` split included).  The device type is part of the
+    fingerprint."""
+    ops.check_strategy(strategy, k_tiling)
     dev_type = torch.device(device).type
     params = (k, strategy, dev_type) if k <= K_CHUNK else (k, strategy, dev_type, k_tiling)
     return Probe(
@@ -225,10 +228,13 @@ def measure_k_tilings(
     """Measured microseconds per launch-geometry contract, or ``None``.
 
     Returns ``{"grid": us, "loop": us}`` at a width where the contracts
-    are different launches (``k`` above one ``"loop"`` chunk).  Under
-    ``"stable"`` both contracts run the same full-width torch chain, so
-    measuring would rank noise: ``None``, and the caller keeps the default.
+    are different launches (``k`` above one ``"loop"`` chunk): under
+    ``"fused"`` and ``"partials"`` the loop re-reads the tile stream once
+    per chunk.  Under ``"stable"`` both contracts run the same full-width
+    torch chain, so measuring would rank noise: ``None``, and the caller
+    keeps the default.
     """
+    ops.check_strategy(strategy)
     if k <= K_CHUNK or strategy == "stable":
         return None
     return {

@@ -30,6 +30,7 @@ from repro_torch import obs
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import PartitionConfig
 from repro_torch.core.tile import HBPTiles, build_tiles
+from repro_torch.graph.aggregate import mean_divisor
 from repro_torch.kernels import ops
 from repro_torch.obs import planview
 from repro_torch.obs.flight import get_flight
@@ -43,16 +44,14 @@ __all__ = ["MatrixPlan", "MatrixRegistry"]
 
 # parts of the JAX registry's surface not ported yet, by ROADMAP item
 _DEFERRED = {
-    "admit_pair": "admit_pair (the A/Aᵀ pair for autodiff) is not ported yet: "
-    "ROADMAP queue 1, item 6",
-    "diff_aggregator": "diff_aggregator (differentiable aggregation) is not "
-    "ported yet: ROADMAP queue 1, item 6",
+    "admit_pair": "admit_pair (the A/Aᵀ pair for autodiff) belongs to the "
+    "training slice of the port, not ported yet: ROADMAP queue 1, item 6",
+    "diff_aggregator": "diff_aggregator (differentiable aggregation) belongs "
+    "to the training slice of the port, not ported yet: ROADMAP queue 1, item 6",
     "operator": "operator() (the solver LinearOperator) is not ported yet: "
     "ROADMAP queue 1, item 5",
     "jacobi": "jacobi() (the solver preconditioner) is not ported yet: "
     "ROADMAP queue 1, item 5",
-    "aggregate": "aggregate(op={op!r}) is not ported yet: ROADMAP queue 1, "
-    "item 6 (only op='sum' is served)",
 }
 
 
@@ -81,6 +80,9 @@ class MatrixPlan:
     # deliberately NOT part of ``_meta()``: the kernels never see them
     quality: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     provenance: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # clamped in-degree [n, 1] on the plan's device, staged on the first
+    # mean aggregation (and dropped with the tiles when budget-unstaged)
+    _mean_div: object = dataclasses.field(default=None, repr=False, compare=False)
     # the owning registry's shared MetricRegistry — single source of truth
     # for the admission counters this plan's views read
     _metrics: object = dataclasses.field(default=None, repr=False, compare=False)
@@ -109,8 +111,8 @@ class MatrixPlan:
 
     def matmat(self, x, *, bucketed: bool = True, buckets=None, combine: str = "sum"):
         """``A @ X`` for an ``[n, k]`` block; ``bucketed`` pads k to the
-        serving buckets (``buckets`` overrides the default set).  Only the
-        ``"sum"`` combine is ported."""
+        serving buckets (``buckets`` overrides the default set).
+        ``combine`` selects the reduction monoid ("sum" | "max")."""
         if not bucketed:
             return ops.hbp_spmm(self.device, x, combine=combine, **self._meta())
         if buckets is None:
@@ -120,12 +122,22 @@ class MatrixPlan:
         )
 
     def aggregate(self, x, *, op: str = "sum", bucketed: bool = True):
-        """Neighborhood aggregation over the resident plan (the matrix read
-        as a graph adjacency).  Only ``op="sum"`` is ported."""
+        """Neighborhood aggregation over the resident plan: the matrix read
+        as a graph adjacency (rows aggregate their stored neighbors).
+
+        ``op`` is "sum", "mean" (the sum divided by the in-degree captured
+        at admission, clamped to 1 so an isolated node aggregates to 0) or
+        "max" (the max monoid; 0 for isolated nodes).  Every GNN layer call
+        reuses the device tiles and the autotuned geometry.
+        """
         if op == "sum":
             return self.matmat(x, bucketed=bucketed)
-        if op in ("mean", "max"):
-            raise NotImplementedError(_DEFERRED["aggregate"].format(op=op))
+        if op == "mean":
+            if self._mean_div is None:  # staged once, like the tiles
+                self._mean_div = mean_divisor(self.row_nnz, self.shape[0], self.device.device)
+            return self.matmat(x, bucketed=bucketed) / self._mean_div
+        if op == "max":
+            return self.matmat(x, bucketed=bucketed, combine="max")
         raise ValueError(f"unknown aggregation {op!r} (sum | mean | max)")
 
     def diff_aggregator(self, *, op: str = "sum", mode: str = "vjp"):
@@ -148,7 +160,9 @@ class MatrixRegistry:
     card, and with no card present the constructor raises (pass
     ``device="cpu"`` to serve with the plain PyTorch versions).  The
     default ``strategy`` follows the device: the fused CUDA kernels on a
-    card, the batch-width-invariant ``"stable"`` chain on the CPU.
+    card, the batch-width-invariant ``"stable"`` chain on the CPU;
+    ``strategy="partials"`` serves the paper's two-phase split (the
+    partials CUDA kernels and a deterministic run combine).
 
     ``search=False`` replaces the measured autotune search with the
     ``tuned_partition_config`` heuristic (still cached); ``candidates``
@@ -380,6 +394,7 @@ class MatrixRegistry:
         if plan is None or plan.device is None:
             return
         plan.device = None
+        plan._mean_div = None  # staged alongside the tiles; rebuilt on demand
         self.metrics.counter("evict.unstaged", matrix=name).inc()
         get_flight().record("evict.unstage", matrix=name)
         if obs.enabled():

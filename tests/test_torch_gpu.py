@@ -2,10 +2,11 @@
 
 Whether a card is present is decided inside the ``cuda`` fixture, never
 at import or collection time, so every test process collects the same
-tests.  Each kernel is held against its plain PyTorch version on the same
-inputs with ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)`` (the kernel
-fuses each multiply-add and keeps one chain per run), and the bitwise
-invariants the serving engine relies on are checked on the card.
+tests.  Each sum kernel is held against its plain PyTorch version on the
+same inputs with ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)`` (the
+kernel fuses each multiply-add), each max kernel exactly (the max is exact
+in any order), and the bitwise invariants the serving engine relies on
+are checked on the card.
 """
 import numpy as np
 import pytest
@@ -16,9 +17,17 @@ from repro_torch.core.matrices import banded_fem, circuit, rmat
 from repro_torch.kernels import ops
 from repro_torch.kernels.hbp_spmv import (
     hbp_spmm_fused,
+    hbp_spmm_fused_max,
+    hbp_spmm_fused_max_plain,
     hbp_spmm_fused_plain,
+    hbp_spmm_partials,
+    hbp_spmm_partials_max,
+    hbp_spmm_partials_max_plain,
+    hbp_spmm_partials_plain,
     hbp_spmv_fused,
     hbp_spmv_fused_plain,
+    hbp_spmv_partials,
+    hbp_spmv_partials_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -63,17 +72,44 @@ def test_kernels_match_plain_and_spmv_is_the_spmm_column(cuda, name, lane):
         assert torch.equal(Y[..., k // 2], y), k
 
 
+@pytest.mark.parametrize("lane", [8, 128, 12])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_max_and_partials_kernels_match_plain(cuda, name, lane):
+    """Kernels 3-6 against their plain versions: sums within the
+    tolerance, maxima exactly; the partials SpMV is bitwise the partials
+    SpMM column."""
+    dt = _staged(cuda, name, lane)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(dt.shape[1], device=cuda, generator=g)
+    p = hbp_spmv_partials(dt, x)
+    _close(p, hbp_spmv_partials_plain(dt, x))
+    for k in (1, 3, 8, 128, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, k // 2] = x
+        P = hbp_spmm_partials(dt, X)
+        _close(P, hbp_spmm_partials_plain(dt, X))
+        assert torch.equal(P[..., k // 2], p), k
+        assert torch.equal(hbp_spmm_fused_max(dt, X), hbp_spmm_fused_max_plain(dt, X)), k
+        assert torch.equal(hbp_spmm_partials_max(dt, X), hbp_spmm_partials_max_plain(dt, X)), k
+
+
 def test_launch_counters_count_launches_only(cuda):
     dt = _staged(cuda, "circuit", 8)
     x = torch.ones(dt.shape[1], device=cuda)
-    v0, m0 = hbp_spmv_fused.launches, hbp_spmm_fused.launches
-    hbp_spmv_fused(dt, x)
-    hbp_spmm_fused(dt, x[:, None].repeat(1, 4))
+    X = x[:, None].repeat(1, 4)
+    wrappers = (
+        (hbp_spmv_fused, x), (hbp_spmm_fused, X), (hbp_spmm_fused_max, X),
+        (hbp_spmv_partials, x), (hbp_spmm_partials, X), (hbp_spmm_partials_max, X),
+    )
+    before = [w.launches for w, _ in wrappers]
+    for w, arg in wrappers:
+        w(dt, arg)
     hbp_spmv_fused_plain(dt, x)
-    assert (hbp_spmv_fused.launches, hbp_spmm_fused.launches) == (v0 + 1, m0 + 1)
+    hbp_spmm_partials_max_plain(dt, X)
+    assert [w.launches for w, _ in wrappers] == [n + 1 for n in before]
 
 
-@pytest.mark.parametrize("strategy", ["fused", "stable"])
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable"])
 def test_bitwise_invariants_on_the_card(cuda, strategy):
     dt = _staged(cuda, "rmat", 8)
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -86,6 +122,41 @@ def test_bitwise_invariants_on_the_card(cuda, strategy):
         for kt in ("grid", "loop"):
             Y = ops.hbp_spmm(dt, X, strategy=strategy, k_tiling=kt)
             assert torch.equal(Y[:, k // 2], y1), (k, kt)
+
+
+def test_max_is_exact_across_strategies_on_the_card(cuda):
+    """The max monoid gives one answer on every strategy, equal to a numpy
+    f32 max of ``a * x`` over each row's stored nonzeros; all-negative
+    rows stay negative and empty rows are 0."""
+    rng = np.random.default_rng(4)
+    dense = rng.standard_normal((512, 300)) * (rng.random((512, 300)) < 0.05)
+    dense[64:320] = 0.0  # empty row groups
+    dense[400] = -np.abs(dense[400]) - (dense[400] != 0)  # all-negative row
+    dense[400, :3] = -2.0
+    from repro_torch.core import csr_from_dense
+
+    tiles = build_tiles(
+        csr_from_dense(dense.astype(np.float32)),
+        PartitionConfig(row_block=128, col_block=128, lane=8),
+    )
+    dt = ops.device_tiles(tiles, cuda)
+    X = rng.standard_normal((300, 40)).astype(np.float32)
+    X[:, 0] = np.abs(X[:, 0]) + 0.1  # every product of row 400 is negative here
+    a = dense.astype(np.float32)
+    prod = np.where(a[:, :, None] != 0, a[:, :, None] * X[None], -np.inf).max(axis=1)
+    want = np.where(np.isneginf(prod), 0.0, prod).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    ys = {
+        s: ops.hbp_spmm(dt, Xd, strategy=s, combine="max")
+        for s in ("fused", "partials", "stable")
+    }
+    for s, y in ys.items():
+        assert np.array_equal(y.cpu().numpy(), want), s
+    assert float(ys["fused"][400, 0]) < 0 and bool(torch.all(ys["fused"][64:320] == 0))
+    Xb = torch.as_tensor(rng.standard_normal((300, 5)).astype(np.float32), device=cuda)
+    for s in ("fused", "partials"):
+        y5 = ops.hbp_spmm_bucketed(dt, Xb, strategy=s, combine="max")
+        assert torch.equal(y5, ops.hbp_spmm(dt, Xb, strategy="stable", combine="max")), s
 
 
 def test_empty_row_groups_are_zero_on_the_card(cuda):
@@ -105,11 +176,12 @@ def test_empty_row_groups_are_zero_on_the_card(cuda):
     _close(Y, torch.as_tensor(dense, dtype=torch.float32, device=cuda) @ X)
 
 
-def test_served_answers_equal_matvec_on_the_card(cuda, tmp_path):
+@pytest.mark.parametrize("strategy", [None, "partials"])
+def test_served_answers_equal_matvec_on_the_card(cuda, tmp_path, strategy):
     from repro_torch.serving import MatrixRegistry, ServingEngine
 
-    reg = MatrixRegistry(cache_dir=tmp_path, search=False)
-    assert reg.strategy == "fused" and reg.device.type == "cuda"
+    reg = MatrixRegistry(cache_dir=tmp_path, search=False, strategy=strategy)
+    assert reg.strategy == (strategy or "fused") and reg.device.type == "cuda"
     A = circuit(5000, seed=3)
     plan = reg.admit(A, "a")
     rng = np.random.default_rng(1)

@@ -45,6 +45,7 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
     code = (
         "import sys\n"
         "import repro_torch.serving, repro_torch.kernels, repro_torch.obs, repro_torch.core\n"
+        "import repro_torch.graph\n"
         "import repro_torch.kernels.hbp_spmv, repro_torch.kernels.build\n"
         "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -57,6 +58,7 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from repro_torch import graph
     from repro_torch.core import PartitionConfig, build_tiles, csr_from_dense
     from repro_torch.kernels import ops
     from repro_torch.serving import MatrixRegistry
@@ -70,4 +72,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         MatrixRegistry()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.hbp_spmv(tiles, torch.ones(8))
+    csr = csr_from_dense(torch.eye(8).numpy())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.make_aggregator(csr, op="max")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.aggregate(tiles, torch.ones(8, 2), op="max")
     assert ops.device_tiles(tiles, "cpu").device == torch.device("cpu")

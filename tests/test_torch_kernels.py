@@ -2,13 +2,14 @@
 
 Both packages get exactly the same tiles (the JAX build, carried over
 with ``tiles_from_arrays``) and the same x, drawn from a seeded numpy
-generator.  The JAX side runs its fused Pallas kernels in interpret mode
-and its ``"stable"``/``"reference"`` strategies on their jnp paths, as its
-own tests do; the port runs on the CPU, where the fused wrappers take
-their plain PyTorch versions.
+generator.  The JAX side runs its fused and partials Pallas kernels in
+interpret mode and its ``"stable"``/``"reference"`` strategies on their
+jnp paths, as its own tests do; the port runs on the CPU, where the
+kernel wrappers take their plain PyTorch versions.
 
-Tolerance: ``rtol=1e-5, atol=1e-5 * max(1, |y_jax|_inf)`` — the two
-implementations reduce the lanes in different orders.
+Tolerance: sums ``rtol=1e-5, atol=1e-5 * max(1, |y_jax|_inf)`` — the two
+implementations reduce the lanes in different orders; the max monoid
+exactly, on every strategy.
 """
 import dataclasses
 
@@ -21,10 +22,15 @@ import repro.core as jcore
 from repro.kernels import ops as jops
 import repro_torch.core as tcore
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.hbp_spmv import (
     hbp_spmm_fused,
+    hbp_spmm_fused_max,
+    hbp_spmm_partials,
+    hbp_spmm_partials_max,
     hbp_spmv_fused,
     hbp_spmv_fused_plain,
+    hbp_spmv_partials,
 )
 
 KS = (1, 3, 8, 128, 129, 256)
@@ -48,8 +54,12 @@ def _dense(seed, n_rows=60, n_cols=80, density=0.15, zero_rows=None):
 
 def _pair(dense, lane):
     """(JAX tiles, the same tiles staged by the port on the CPU)."""
+    return _pair_csr(jcore.csr_from_dense(dense), lane)
+
+
+def _pair_csr(csr, lane):
     cfg = jcore.PartitionConfig(row_block=32, col_block=32, group=8, lane=lane)
-    tj = jcore.build_tiles(jcore.csr_from_dense(dense), cfg)
+    tj = jcore.build_tiles(csr, cfg)
     d = {f: getattr(tj, f) for f in FIELDS}
     d.update(shape=tj.shape, n_rowgroups=tj.n_rowgroups, cfg=dataclasses.asdict(cfg))
     return tj, tops.device_tiles(tcore.tiles_from_arrays(d), "cpu")
@@ -70,7 +80,7 @@ def zero_groups():
     return dense, tj, dt
 
 
-@pytest.mark.parametrize("strategy", ["fused", "stable", "reference"])
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
 def test_spmv_matches_jax(tiles, strategy):
     tj, dt = tiles
     x = np.random.default_rng(1).standard_normal(tj.shape[1]).astype(np.float32)
@@ -90,7 +100,93 @@ def test_fused_spmm_matches_jax(tiles, k, k_tiling):
     _close(tops.hbp_spmm(dt, X, strategy="fused", k_tiling=k_tiling), y_j)
 
 
-@pytest.mark.parametrize("strategy", ["fused", "stable", "reference"])
+@pytest.mark.parametrize("k,k_tiling", FUSED_CASES)
+def test_partials_spmm_matches_jax(tiles, k, k_tiling):
+    tj, dt = tiles
+    X = np.random.default_rng(k).standard_normal((tj.shape[1], k)).astype(np.float32)
+    y_j = jops.hbp_spmm(tj, X, strategy="partials", interpret=True, k_tiling=k_tiling)
+    _close(tops.hbp_spmm(dt, X, strategy="partials", k_tiling=k_tiling), y_j)
+
+
+# the JAX "stable"/"reference" max chains unroll every lane into their
+# trace; at lane 128 each new width costs seconds of compilation, so that
+# lane runs one width below and one above a 128-wide chunk there
+_MAX_WIDTHS = ((1, "grid"), (8, "grid"), (129, "grid"), (256, "grid"), (256, "loop"))
+MAX_CASES = [
+    (lane, s, k, kt)
+    for lane in LANES
+    for s in ("fused", "partials", "stable", "reference")
+    for k, kt in _MAX_WIDTHS
+    if lane == 8 or s in ("fused", "partials") or (k, kt) in ((8, "grid"), (129, "grid"))
+]
+_LANE_TILES = {}
+
+
+@pytest.mark.parametrize("lane,strategy,k,k_tiling", MAX_CASES)
+def test_max_matches_jax_exactly(lane, strategy, k, k_tiling):
+    if lane not in _LANE_TILES:
+        _LANE_TILES[lane] = _pair(_dense(lane), lane)  # the ``tiles`` fixture's matrix
+    tj, dt = _LANE_TILES[lane]
+    X = np.random.default_rng(k + 1).standard_normal((tj.shape[1], k)).astype(np.float32)
+    y_j = np.asarray(
+        jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True, k_tiling=k_tiling)
+    )
+    y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max", k_tiling=k_tiling).numpy()
+    np.testing.assert_array_equal(y_t, y_j)
+
+
+def _numpy_max(csr, X):
+    """f32 max of ``a * x`` over each row's stored nonzeros, 0 for rows
+    with none: the semantics of ``combine="max"``."""
+    out = np.zeros((csr.shape[0], X.shape[1]), np.float32)
+    for r in range(csr.shape[0]):
+        lo, hi = csr.indptr[r], csr.indptr[r + 1]
+        a = csr.data[lo:hi].astype(np.float32)
+        live = a != 0
+        if live.any():
+            out[r] = (a[live, None] * X[csr.indices[lo:hi][live]]).max(axis=0)
+    return out
+
+
+@pytest.fixture(scope="module")
+def max_edge_cases():
+    """Empty row groups, an all-negative row and explicitly stored zeros."""
+    dense = _dense(9, n_rows=96, n_cols=70, zero_rows=slice(16, 48))
+    dense[60] = -np.abs(dense[60])
+    dense[60, :3] = -1.0  # every entry negative
+    csr = jcore.csr_from_dense(dense)
+    # store explicit zeros: row 70 holds only zeros, row 60 a zero beside
+    # its negative entries; both must ignore them (a stored 0 is no edge)
+    rows = np.repeat(np.arange(96), np.diff(csr.indptr))
+    extra = np.array([[70, 5], [70, 40], [60, 69]])
+    keep = ~np.isin(rows * 70 + csr.indices, extra[:, 0] * 70 + extra[:, 1])
+    dense[70] = 0.0
+    keep &= rows != 70
+    r = np.concatenate([rows[keep], extra[:, 0]])
+    c = np.concatenate([csr.indices[keep], extra[:, 1]])
+    v = np.concatenate([csr.data[keep], np.zeros(3)]).astype(np.float32)
+    with_zeros = jcore.csr_from_coo(jcore.COOMatrix(r, c, v, (96, 70)), sum_duplicates=False)
+    assert with_zeros.nnz == int(keep.sum()) + 3
+    tj, dt = _pair_csr(with_zeros, 8)
+    assert len(np.unique(tj.rowgroup)) < tj.n_rowgroups
+    return with_zeros, tj, dt
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
+def test_max_edge_cases(max_edge_cases, strategy):
+    csr, tj, dt = max_edge_cases
+    X = np.abs(np.random.default_rng(4).standard_normal((70, 6))).astype(np.float32) + 0.1
+    X[:, 5] = -X[:, 5]  # a column where row 60's products are all positive
+    Y = tops.hbp_spmm(dt, X, strategy=strategy, combine="max").numpy()
+    np.testing.assert_array_equal(Y, _numpy_max(csr, X))
+    np.testing.assert_array_equal(
+        Y, np.asarray(jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True))
+    )
+    assert np.all(Y[16:48] == 0.0) and np.all(Y[70] == 0.0)
+    assert np.all(Y[60, :5] < 0.0) and Y[60, 5] > 0.0
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
 def test_zero_row_groups_come_out_zero(zero_groups, strategy):
     dense, tj, dt = zero_groups
     X = np.random.default_rng(3).standard_normal((70, 5)).astype(np.float32)
@@ -104,7 +200,7 @@ def test_zero_row_groups_come_out_zero(zero_groups, strategy):
     assert empty.size and torch.all(y_h[torch.as_tensor(empty)] == 0)
 
 
-@pytest.mark.parametrize("strategy", ["fused", "stable"])
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable"])
 def test_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
     """A column's bits do not depend on the batch width, on zero padding
     to a bucket, or on the k_tiling contract; SpMV equals the column."""
@@ -121,6 +217,46 @@ def test_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
         Yb = tops.hbp_spmm_bucketed(dt, X, strategy=strategy)
         assert Yb.shape == (tj.shape[0], k)
         assert torch.equal(Yb[:, k // 2], y1), k
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_max_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
+    """Under the max monoid a column's bits depend neither on the batch
+    width, nor on bucket padding, nor on the k_tiling contract."""
+    tj, dt = tiles
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((tj.shape[1], 1)).astype(np.float32)
+    y1 = tops.hbp_spmm(dt, x, strategy=strategy, combine="max")[:, 0]
+    for k in (5, 8, 200):
+        X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
+        X[:, k // 2] = x[:, 0]
+        for kt in ("grid", "loop"):
+            Y = tops.hbp_spmm(dt, X, strategy=strategy, combine="max", k_tiling=kt)
+            assert torch.equal(Y[:, k // 2], y1), (k, kt)
+        Yb = tops.hbp_spmm_bucketed(dt, X, strategy=strategy, combine="max")
+        assert torch.equal(Yb[:, k // 2], y1), k
+
+
+def test_plain_partials_and_max_wrappers(tiles):
+    """The partials wrappers return one block per tile, the max wrappers
+    -inf where a row has no live entry; the entry points map it to 0."""
+    tj, dt = tiles
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(tj.shape[1]).astype(np.float32))
+    X = torch.as_tensor(rng.standard_normal((tj.shape[1], 4)).astype(np.float32))
+    X[:, 2] = x
+    p = hbp_spmv_partials(dt, x)
+    assert p.shape == (tj.n_tiles, tj.cfg.group)
+    P = hbp_spmm_partials(dt, X)
+    assert P.shape == (tj.n_tiles, tj.cfg.group, 4) and torch.equal(P[..., 2], p)
+    Pm = hbp_spmm_partials_max(dt, X)
+    assert Pm.shape == P.shape
+    Ym = hbp_spmm_fused_max(dt, X)
+    assert Ym.shape == (tj.n_rowgroups, tj.cfg.group, 4)
+    empty = np.setdiff1d(np.arange(tj.n_rowgroups), tj.rowgroup)
+    assert torch.all(torch.isneginf(Ym[torch.as_tensor(empty, dtype=torch.long)]))
+    # the run max of the per-tile maxima is the fused max
+    assert torch.equal(tref.segment_max_sorted(Pm, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths), Ym)
 
 
 def test_plain_fused_spmv_equals_spmm_column(tiles):
@@ -154,21 +290,30 @@ def test_traffic_model_counts_stream_passes(tiles):
     assert two > 2 * one - 2 * (dt.n_rowgroups * 8 * 128 * 4) and one > stream
 
 
+def test_traffic_model_charges_the_partials_buffer(tiles):
+    _, dt = tiles
+    T, group = dt.n_tiles, dt.data.shape[1]
+    for k in (1, 8, 256):
+        fused = tops.modeled_launch_bytes(dt, k, "fused", "grid")
+        assert tops.modeled_launch_bytes(dt, k, "partials", "grid") == fused + 2 * T * group * k * 4
+
+
 def test_deferred_paths_raise_not_implemented(tiles):
+    """What stays deferred raises, naming its slice; partials and max are
+    served."""
     _, dt = tiles
     X = np.ones((dt.shape[1], 2), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.hbp_spmm(dt, X, strategy="partials")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.hbp_spmv(dt, X[:, 0], strategy="partials")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.hbp_spmm(dt, X, combine="max")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="training slice.*ROADMAP"):
         tops.hbp_spmm_argmax(dt, X)
+    assert tops.hbp_spmm(dt, X, strategy="partials").shape == (dt.shape[0], 2)
+    assert tops.hbp_spmv(dt, X[:, 0], strategy="partials").shape == (dt.shape[0],)
+    assert tops.hbp_spmm(dt, X, combine="max").shape == (dt.shape[0], 2)
     with pytest.raises(ValueError):
         tops.hbp_spmm(dt, X, strategy="bogus")
     with pytest.raises(ValueError):
         tops.hbp_spmm(dt, X, k_tiling="bogus")
+    with pytest.raises(ValueError, match="combine"):
+        tops.hbp_spmm(dt, X, combine="min")
 
 
 def test_wrappers_check_their_operands(tiles):

@@ -1,10 +1,11 @@
-"""The port's ``"stable"`` and ``"reference"`` SpMM against the JAX package's.
+"""The port's ``"stable"`` and ``"reference"`` SpMM, and its max-monoid
+references, against the JAX package's.
 
 Same tiles (the JAX build, carried over with ``tiles_from_arrays``), same
 seeded x; the JAX side runs its jnp paths, the port its plain PyTorch
 references on the CPU.  Tolerance: ``rtol=1e-5,
 atol=1e-5 * max(1, |y_jax|_inf)`` — the lane sums are taken in different
-orders.
+orders; the max references exactly.
 
 The JAX ``"stable"`` chain unrolls every lane into its trace, so at lane
 128 each new width costs seconds of compilation; that lane runs a reduced
@@ -14,9 +15,10 @@ contracts) to keep the file fast.  The fused path covers the full cross product 
 """
 import dataclasses
 
-import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
+import jax  # both frameworks in one process, JAX on the CPU
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 from repro.kernels import ops as jops
@@ -58,3 +60,35 @@ def test_spmm_matches_jax(strategy, lane, k, k_tiling):
     y_t = tops.hbp_spmm(dt, X, strategy=strategy, k_tiling=k_tiling).numpy()
     atol = 1e-5 * max(1.0, float(np.abs(y_j).max()))
     np.testing.assert_allclose(y_t, y_j, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_max_reference_matches_jax_exactly(k):
+    """The hashed max references, ``-inf`` identity included, bit for bit."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+
+    tj, dt = _tiles(8)
+    X = np.random.default_rng(k).standard_normal((tj.shape[1], k)).astype(np.float32)
+    xb = tops.blocked_matrix(torch.as_tensor(X), tj.cfg.col_block)
+    y_t = tref.hbp_spmm_hashed_max(
+        dt.rowgroup, dt.colblock, dt.data, dt.cols, xb, n_rowgroups=dt.n_rowgroups
+    )
+    y_j = jref.hbp_spmm_hashed_max(
+        tj.rowgroup, tj.colblock, tj.data, tj.cols, np.asarray(xb), n_rowgroups=tj.n_rowgroups
+    )
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    assert torch.isneginf(y_t).any()  # rows and row groups with no live entry
+
+
+def test_segment_max_sorted_matches_jax_segment_max():
+    from repro_torch.kernels import ref as tref
+
+    rng = np.random.default_rng(3)
+    rowgroup = np.sort(rng.choice([0, 1, 3, 4, 7], size=40)).astype(np.int32)
+    contrib = rng.standard_normal((40, 8, 3)).astype(np.float32)
+    y_j = jax.ops.segment_max(contrib, rowgroup, num_segments=9)
+    y_t = tref.segment_max_sorted(torch.as_tensor(contrib), torch.as_tensor(rowgroup), 9)
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    empty = tref.segment_max_sorted(torch.zeros((0, 8)), torch.zeros(0, dtype=torch.int32), 3)
+    assert empty.shape == (3, 8) and torch.all(torch.isneginf(empty))

@@ -81,7 +81,7 @@ def _port_registry(tmp_path, strategy=None, **kw):
 
 
 @pytest.mark.parametrize("overlap", [False, True], ids=["sync", "overlap"])
-@pytest.mark.parametrize("strategy", ["stable", "fused"])
+@pytest.mark.parametrize("strategy", ["stable", "fused", "partials"])
 def test_mixed_k_traffic_matches_jax_and_matvec(tmp_path, registries, strategy, overlap):
     jreg, jm = registries
     treg, tm = _port_registry(tmp_path, strategy)
@@ -181,8 +181,8 @@ def test_registry_device_and_strategy_defaults(tmp_path):
     assert reg.device == torch.device("cpu") and reg.strategy == "stable"
     reg = tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, strategy="fused")
     assert reg.strategy == "fused"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, strategy="partials")
+    reg = tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, strategy="partials")
+    assert reg.strategy == "partials"
     with pytest.raises(ValueError):
         tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, strategy="bogus")
     with pytest.raises(ValueError):
@@ -190,21 +190,25 @@ def test_registry_device_and_strategy_defaults(tmp_path):
 
 
 def test_deferred_registry_surface_raises(tmp_path):
+    """The training and solver surface stays deferred, naming its ROADMAP
+    item; every aggregation and the max combine are served."""
     treg, tm = _port_registry(tmp_path)
     plan = treg.get("A")
     x = np.ones((tm["A"].shape[1], 2), np.float32)
-    assert plan.aggregate(x).shape == (tm["A"].shape[0], 2)
-    for call in (
-        lambda: treg.admit_pair(tm["A"], "A2"),
-        lambda: plan.diff_aggregator(),
-        lambda: plan.operator(),
-        lambda: plan.jacobi(),
-        lambda: plan.aggregate(x, op="mean"),
-        lambda: plan.aggregate(x, op="max"),
-        lambda: plan.matmat(x, combine="max"),
+    for op in ("sum", "mean", "max"):
+        assert plan.aggregate(x, op=op).shape == (tm["A"].shape[0], 2)
+    assert plan.matmat(x, combine="max").shape == (tm["A"].shape[0], 2)
+    with pytest.raises(ValueError):
+        plan.aggregate(x, op="min")
+    for call, item in (
+        (lambda: treg.admit_pair(tm["A"], "A2"), "training slice"),
+        (lambda: plan.diff_aggregator(), "training slice"),
+        (lambda: plan.operator(), "item 5"),
+        (lambda: plan.jacobi(), "item 5"),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as info:
             call()
+        assert item in str(info.value)
 
 
 def test_readmission_is_content_addressed(tmp_path):
@@ -247,6 +251,23 @@ def test_measured_search_keeps_its_own_cache_entries(tmp_path):
     fp_cpu = tserving.spmm_probe(device="cpu").params
     fp_cuda = tserving.spmm_probe(device="cuda").params
     assert fp_cpu != fp_cuda and "cpu" in fp_cpu
+
+
+def test_partials_probe_and_k_tilings(tmp_path):
+    """The measured search and the k_tiling measurement serve "partials"."""
+    A = _mats(tmat)["B"]
+    cands = [tcore.PartitionConfig(**SMALL), tcore.PartitionConfig(**{**SMALL, "lane": 8})]
+    reg = tserving.MatrixRegistry(
+        device="cpu", cache_dir=tmp_path, candidates=cands, strategy="partials",
+        k_tiling="auto",
+    )
+    plan = reg.admit(A, "B")
+    assert plan.autotune_searched and len(plan.provenance["trials"]) == 2
+    assert set(plan.provenance["k_tiling_us"]) == {"grid", "loop"}
+    probe = tserving.spmm_probe(strategy="partials", device="cpu")
+    assert probe.params == (8, "partials", "cpu")
+    with pytest.raises(ValueError):
+        tserving.spmm_probe(strategy="bogus")
 
 
 def test_auto_k_tiling_keeps_grid_for_stable(tmp_path):
