@@ -11,16 +11,19 @@ Phases (any failure exits non-zero; none is caught):
    register / shared-memory / spill lines;
 3. kernels  — each of the six kernels against its plain PyTorch version on
    ``m4_kron16`` (65,536 rows, the size of SuiteSparse ``kron_g500-logn16``,
-   tuned geometry) and ``m10_ohne2`` (lane 128 pinned) at k = 1, 8, 128,
-   256: sums within ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)``,
+   tuned geometry), ``m10_ohne2`` (lane 128 pinned) and the hub-run matrix
+   of ``tests/hub_runs.py`` (runs of more than 4 * ``RUN_CHUNK``, exactly
+   ``RUN_CHUNK`` and ``RUN_CHUNK + 1`` tiles, lane 8) at k = 1, 8, 128,
+   256, with the fused kernels' chunk index statistics: sums within
+   ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)``,
    maxima exactly.  The bitwise invariants: SpMV equals the SpMM column
    (k = 1, 8, 128 and under bucket padding) under ``"fused"`` and
    ``"partials"``; ``grid`` equals ``loop`` at k = 256; ``"stable"`` is
    batch-width invariant; the max monoid gives one answer under
    ``"fused"``, ``"partials"`` and ``"stable"``, equal to a numpy f32 max
    of ``a * x`` over each row's stored entries on sampled columns.  Row
-   groups without tiles come out 0 (sum and max) and an all-negative row
-   stays negative under max;
+   groups without tiles come out 0 (sum and max, every matrix) and an
+   all-negative row stays negative under max;
 4. serving  — ``MatrixRegistry(device="cuda")`` admits ``m4_kron16`` with
    the heuristic geometry and ``m1_asic320k`` with a measured search
    (CUDA-event probe); ``ServingEngine`` serves mixed k = 1..16 traffic
@@ -45,8 +48,9 @@ Phases (any failure exits non-zero; none is caught):
    |logits|_inf)``; the max kernels' launch counters must rise;
 7. times    — CUDA-event times of each kernel, its plain version and, for
    the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick
-   the port never calls) on ``m4_kron16``, beside the least time the card
-   could take.
+   the port never calls) on ``m4_kron16``, and of the fused SpMV and SpMM
+   on ``m10_ohne2`` at k = 1 and 8, beside the least time the card could
+   take and the traffic of the fused sum kernels' chunk buffer.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -184,8 +188,8 @@ class Float64Csr:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    from repro_torch.core import PartitionConfig, build_tiles, csr_from_dense
-    from repro_torch.core import enumerate_configs, tuned_partition_config
+    from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo
+    from repro_torch.core import csr_from_dense, enumerate_configs, tuned_partition_config
     from repro_torch.core.matrices import SUITE_SPECS
     from repro_torch.graph import (
         GCN,
@@ -201,6 +205,9 @@ def main() -> None:
     # of the ops entry point, which an attribute import would return)
     K = importlib.import_module("repro_torch.kernels.hbp_spmv")
     from repro_torch.serving import MatrixRegistry, QoSClass, ServingEngine
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from hub_runs import hub_config, hub_coo
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -246,17 +253,27 @@ def main() -> None:
     log(f"[kernels] m4_kron16 {kron.shape} nnz={kron.nnz} cfg={kron_cfg} "
         f"tiles={kron_tiles.n_tiles} stream={kron_tiles.data.nbytes + kron_tiles.cols.nbytes} B "
         f"built in {time.perf_counter() - t0:.1f} s")
-    # one thread of the fused kernels walks a whole row-group run: the
-    # longest run bounds their time from below on this matrix
-    run_len = np.diff(dt.run_start.cpu().numpy())
-    log(f"[kernels] m4_kron16 runs={run_len.size} tiles/run mean={run_len.mean():.1f} "
-        f"max={run_len.max()} ({run_len.max() * kron_cfg.lane} serial multiply-adds per thread)")
     ohne = SUITE_SPECS["m10_ohne2"](0)
     ohne_cfg = PartitionConfig(lane=128)
     dt_ohne = ops.device_tiles(build_tiles(ohne, ohne_cfg), dev)
+    hub = csr_from_coo(COOMatrix(*hub_coo(ops.RUN_CHUNK, 8)))
+    dt_hub = ops.device_tiles(build_tiles(hub, PartitionConfig(**hub_config(8))), dev)
+    matrices = (("m4_kron16", dt, kron), ("m10_ohne2", dt_ohne, ohne), ("hub", dt_hub, hub))
+    # the fused sum kernels walk chunks of at most RUN_CHUNK tiles of a
+    # row-group run, and fold the chunks of longer runs
+    for label, d, _ in matrices:
+        run_len = np.diff(d.run_start.cpu().numpy())
+        chain = np.diff(d.chunk_start.cpu().numpy())
+        log(f"[kernels] {label} runs={run_len.size} tiles/run mean={run_len.mean():.1f} "
+            f"max={run_len.max()}; RUN_CHUNK={ops.RUN_CHUNK} chunks={chain.size} "
+            f"split runs={d.split_run.numel()} ({d.n_split_chunks} chunks) longest chain="
+            f"{chain.max()} tiles; chunk buffer {d.chunk_buffer_nbytes(8)} B at k=8, "
+            f"{d.chunk_buffer_nbytes(128)} B at k=128")
+    check({ops.RUN_CHUNK, ops.RUN_CHUNK + 1} <= set(np.diff(dt_hub.run_start.cpu().numpy()))
+          and dt_hub.n_split_chunks > 0, "the hub matrix lacks the runs it promises")
 
     errs = {}  # (kernel, matrix, k) -> max abs err against the plain version
-    for label, d, csr in (("m4_kron16", dt, kron), ("m10_ohne2", dt_ohne, ohne)):
+    for label, d, csr in matrices:
         x = torch.randn(d.shape[1], device=dev, generator=g)
         y = K.hbp_spmv_fused(d, x)
         errs["hbp_spmv_fused", label, 1] = max_err_within(
@@ -264,6 +281,9 @@ def main() -> None:
         p = K.hbp_spmv_partials(d, x)
         errs["hbp_spmv_partials", label, 1] = max_err_within(
             p, K.hbp_spmv_partials_plain(d, x), f"{label} partials spmv")
+        empty = torch.as_tensor(
+            np.setdiff1d(np.arange(d.n_rowgroups), d.run_rowgroup.cpu().numpy()), device=dev)
+        check(bool(torch.all(y[empty] == 0)), f"{label}: empty row groups are not zero (spmv)")
         for k in (1, 8, 128, 256):
             X = torch.randn(d.shape[1], k, device=dev, generator=g)
             c = k // 2
@@ -307,7 +327,7 @@ def main() -> None:
             + "; max kernels exactly plain at k=1, 8, 128, 256; bitwise SpMV == SpMM column "
               "(fused and partials, k=1, 8, 128, 256, bucket 5->8); grid == loop at k=256 "
               "(sum and max); max equal under fused/partials/stable and to numpy on columns "
-            + str(list(sampled)))
+            + str(list(sampled)) + f"; {empty.numel()} empty row groups are 0")
     # "stable" (the torch lane chain) is batch-width invariant on the card
     x = torch.randn(dt.shape[1], device=dev, generator=g)
     y_st = ops.hbp_spmv(dt, x, strategy="stable")
@@ -514,73 +534,84 @@ def main() -> None:
             launches[name] = counts[name]
         del plans, logits, ref64
 
-    # --- 7. times on m4_kron16 ------------------------------------------------
-    n_rows, n_cols = kron.shape
-    A_csr = torch.sparse_csr_tensor(
-        torch.as_tensor(kron.indptr, dtype=torch.int64),
-        torch.as_tensor(kron.indices, dtype=torch.int64),
-        torch.as_tensor(kron.data, dtype=torch.float32),
-        size=kron.shape,
-        check_invariants=True,
-    ).to(dev)
-    T, group, lane = dt.data.shape
-    index_bytes = dt.colblock.nbytes + dt.run_start.nbytes + dt.run_rowgroup.nbytes
-    stream_bytes = dt.data.nbytes + dt.cols.nbytes + index_bytes
+    # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
+    def csr_tensor(csr):
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr, dtype=torch.int64),
+            torch.as_tensor(csr.indices, dtype=torch.int64),
+            torch.as_tensor(csr.data, dtype=torch.float32),
+            size=csr.shape,
+            check_invariants=True,
+        ).to(dev)
+
+    timed = {"m4_kron16": (kron, dt, csr_tensor(kron)),
+             "m10_ohne2": (ohne, dt_ohne, csr_tensor(ohne))}
     rows = {}
-    cases = [("hbp_spmv_fused", 1), ("hbp_spmv_partials", 1)] + [
-        (name, k) for k in (8, 128) for name in
+    cases = [("m4_kron16", "hbp_spmv_fused", 1), ("m4_kron16", "hbp_spmv_partials", 1)] + [
+        ("m4_kron16", name, k) for k in (8, 128) for name in
         ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")
-    ]
-    for name, k in cases:
+    ] + [("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
+    for label, name, k in cases:
+        csr, d, A_csr = timed[label]
+        n_rows, n_cols = csr.shape
+        T, group, lane = d.data.shape
+        index_bytes = d.colblock.nbytes + d.run_start.nbytes + d.run_rowgroup.nbytes
+        stream_bytes = d.data.nbytes + d.cols.nbytes + index_bytes
         X = torch.randn(n_cols, k, device=dev, generator=g)
         arg = X[:, 0].contiguous() if k == 1 else X
         kern, plain = wrappers[name], plains[name]
-        ms = timed_ms(lambda: kern(dt, arg), 20 if k < 128 else 10)
-        plain_ms = timed_ms(lambda: plain(dt, arg), 3, warmup=1)
+        ms = timed_ms(lambda: kern(d, arg), 20 if k < 128 else 10)
+        plain_ms = timed_ms(lambda: plain(d, arg), 3, warmup=1)
         # no PyTorch call computes a max-monoid SpMM on CUDA
         # (torch.sparse.mm(reduce="amax") runs on the CPU only)
         library_ms = None if name.endswith("_max") else timed_ms(lambda: A_csr @ arg, 20)
-        x_bytes, y_bytes = n_cols * k * 4, dt.n_rowgroups * group * k * 4
+        x_bytes, y_bytes = n_cols * k * 4, d.n_rowgroups * group * k * 4
         bytes_bound = (stream_bytes + x_bytes + y_bytes) / peak_bw * 1e3
         ops_bound = 2.0 * T * group * lane * k / peak_flops * 1e3
-        nnz_bound = max((kron.nnz * 8 + x_bytes + n_rows * k * 4) / peak_bw,
-                        2.0 * kron.nnz * k / peak_flops) * 1e3
+        nnz_bound = max((csr.nnz * 8 + x_bytes + n_rows * k * 4) / peak_bw,
+                        2.0 * csr.nnz * k / peak_flops) * 1e3
         source, replaces = KERNELS[name]
         row = {
             "name": name, "route": "cuda", "source": SOURCES[source], "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name, "m4_kron16", k],
+            "launches": launches[name], "max_abs_err": errs[name, label, k],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_bound, ops_bound),
             "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
-            "library_ms": library_ms, "matrix": "m4_kron16", "k": k,
+            "library_ms": library_ms, "matrix": label, "k": k,
             "nnz_bound_ms": nnz_bound, "card": smi_line,
         }
+        if name in ("hbp_spmv_fused", "hbp_spmm_fused"):
+            # the split runs' chunk partials, written by the chains and
+            # read back by the fold
+            buf = 2 * d.chunk_buffer_nbytes(k)
+            row["chunk_buffer_bytes"] = buf
+            row["chunk_buffer_ms"] = buf / peak_bw * 1e3
         if "partials" in name:
             # the split's own traffic: the buffer written here and read
             # back by the combine, and the combine and entry point's time
             buf = 2 * T * group * k * 4
-            contrib = kern(dt, arg)
+            contrib = kern(d, arg)
             combine = ref.segment_max_sorted if name.endswith("_max") else ref.segment_sum_sorted
             view = contrib[..., None] if k == 1 else contrib
             row["partials_buffer_bytes"] = buf
             row["partials_buffer_ms"] = buf / peak_bw * 1e3
             row["combine_ms"] = timed_ms(
-                lambda: combine(view, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths), 10)
+                lambda: combine(view, d.rowgroup, d.n_rowgroups, d.rg_lengths), 10)
         # the whole entry point: kernel, combine, -inf mapping and unpermute
         kw = dict(strategy="partials" if "partials" in name else "fused")
         if k == 1:
-            entry = lambda: ops.hbp_spmv(dt, arg, **kw)  # noqa: E731
+            entry = lambda: ops.hbp_spmv(d, arg, **kw)  # noqa: E731
         else:
             kw["combine"] = "max" if name.endswith("_max") else "sum"
-            entry = lambda: ops.hbp_spmm(dt, arg, **kw)  # noqa: E731
+            entry = lambda: ops.hbp_spmm(d, arg, **kw)  # noqa: E731
         row["entry_ms"] = timed_ms(entry, 10)
-        rows[name, k] = row
+        rows[name, label, k] = row
         log("[times] " + json.dumps(row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     # the kernels line: the SpMV kernels at k=1, the sum SpMM kernels at the
     # serving bucket k=8, the max kernels at the graph width k=128
-    line = [rows["hbp_spmv_fused", 1], rows["hbp_spmm_fused", 8],
-            rows["hbp_spmm_fused_max", 128], rows["hbp_spmm_partials_max", 128],
-            rows["hbp_spmv_partials", 1], rows["hbp_spmm_partials", 8]]
+    line = [rows[name, "m4_kron16", k] for name, k in (
+        ("hbp_spmv_fused", 1), ("hbp_spmm_fused", 8), ("hbp_spmm_fused_max", 128),
+        ("hbp_spmm_partials_max", 128), ("hbp_spmv_partials", 1), ("hbp_spmm_partials", 8))]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -38,8 +38,8 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # c_void_p (a bare Python int would be passed as a 32-bit int)
 _SIGNATURES = {
     "hbp_spmv": {
-        "hbp_spmv_fused_launch": [_ptr] * 7 + [_int] * 5 + [_ptr],
-        "hbp_spmm_fused_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
+        "hbp_spmv_fused_launch": [_ptr] * 11 + [_int] * 6 + [_ptr],
+        "hbp_spmm_fused_launch": [_ptr] * 11 + [_int] * 7 + [_ptr],
         "hbp_spmm_fused_max_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
     },
     "hbp_partials": {

@@ -16,6 +16,11 @@
 // The lane count comes at run time (the tuned configs pick 8..128): the
 // common powers of two get an unrolled specialisation (LANE > 0), any
 // other width the generic loop (LANE = 0).  Both run the identical chain.
+//
+// vec_sum_chain is the SumOp chain of the fused sum kernels for LANE > 0:
+// the same multiply-adds in the same order, so the same bits, with each
+// tile row read as 16-byte vectors and the next step's row loaded while
+// this step's x gathers are in flight.
 
 #pragma once
 
@@ -64,6 +69,62 @@ __device__ __forceinline__ float tile_chain(
   return acc;
 }
 
+// Lanes per step of vec_sum_chain: two 16-byte loads each of cols and data.
+constexpr int kStep = 8;
+
+template <int LANE>
+__device__ __forceinline__ float vec_sum_chain(
+    const float* __restrict__ data, const int* __restrict__ cols,
+    const int* __restrict__ colblock, const float* __restrict__ x,
+    int t0, int t1, int g, int group, int col_block, int k, int c) {
+  static_assert(LANE >= kStep && LANE % kStep == 0, "lane must be a multiple of 8");
+  constexpr int kSteps = LANE / kStep;  // steps per tile row
+  struct Row {
+    int4 c0, c1;
+    float4 d0, d1;
+    const float* xs;  // column c of the tile's x segment
+  };
+  // step s reads lanes [j * kStep, (j + 1) * kStep) of row g of tile t
+  auto fetch = [&](int s) {
+    const int t = t0 + s / kSteps;
+    const int j = s % kSteps;
+    const int64_t slot = (static_cast<int64_t>(t) * group + g) * LANE + j * kStep;
+    const int4* cp = reinterpret_cast<const int4*>(cols + slot);
+    const float4* dp = reinterpret_cast<const float4*>(data + slot);
+    Row r;
+    r.c0 = __ldg(cp);
+    r.c1 = __ldg(cp + 1);
+    r.d0 = __ldg(dp);
+    r.d1 = __ldg(dp + 1);
+    r.xs = x + static_cast<int64_t>(__ldg(colblock + t)) * col_block * k + c;
+    return r;
+  };
+  const int n = (t1 - t0) * kSteps;
+  float acc = 0.0f;
+  if (n <= 0) return acc;
+  Row cur = fetch(0);
+  for (int s = 0; s < n; ++s) {
+    const float* xs = cur.xs;
+    const int64_t kk = k;
+    const float x0 = __ldg(xs + cur.c0.x * kk), x1 = __ldg(xs + cur.c0.y * kk);
+    const float x2 = __ldg(xs + cur.c0.z * kk), x3 = __ldg(xs + cur.c0.w * kk);
+    const float x4 = __ldg(xs + cur.c1.x * kk), x5 = __ldg(xs + cur.c1.y * kk);
+    const float x6 = __ldg(xs + cur.c1.z * kk), x7 = __ldg(xs + cur.c1.w * kk);
+    // the last step re-reads its own row rather than branch
+    const Row next = fetch(s + 1 < n ? s + 1 : s);
+    acc = __fmaf_rn(cur.d0.x, x0, acc);
+    acc = __fmaf_rn(cur.d0.y, x1, acc);
+    acc = __fmaf_rn(cur.d0.z, x2, acc);
+    acc = __fmaf_rn(cur.d0.w, x3, acc);
+    acc = __fmaf_rn(cur.d1.x, x4, acc);
+    acc = __fmaf_rn(cur.d1.y, x5, acc);
+    acc = __fmaf_rn(cur.d1.z, x6, acc);
+    acc = __fmaf_rn(cur.d1.w, x7, acc);
+    cur = next;
+  }
+  return acc;
+}
+
 // Expands LAUNCH(LANE) with the specialisation for ``lane``: 8..128
 // unrolled, anything else the generic loop (0).
 #define HBP_DISPATCH_LANE(lane, LAUNCH) \
@@ -76,6 +137,15 @@ __device__ __forceinline__ float tile_chain(
     default: LAUNCH(0); break;          \
   }
 
+// One thread per output element: the grid of kThreads-wide blocks that
+// covers n_out >= 0 elements.
+inline cudaError_t grid_for(int64_t n_out, dim3* grid) {
+  const int64_t blocks = (n_out + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  *grid = dim3(static_cast<unsigned>(blocks));
+  return cudaSuccess;
+}
+
 // Checks the sizes of a launch over n_out output elements and makes the
 // operands' device current; returns cudaSuccess with the grid in *grid,
 // or the error to hand back to the caller.
@@ -83,9 +153,8 @@ inline cudaError_t prepare_launch(int64_t n_out, int group, int lane, int col_bl
                                   int k, int device, dim3* grid) {
   if (n_out < 0 || group <= 0 || lane <= 0 || col_block <= 0 || k <= 0)
     return cudaErrorInvalidValue;
-  const int64_t blocks = (n_out + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  *grid = dim3(static_cast<unsigned>(blocks));
+  const cudaError_t sized = grid_for(n_out, grid);
+  if (sized != cudaSuccess) return sized;
   // the caller's stream belongs to the operands' device; make it current
   // for this library's runtime before launching into it
   return cudaSetDevice(device);

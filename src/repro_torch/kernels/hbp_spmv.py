@@ -14,6 +14,13 @@ and an unpadded right-hand side.  The fused-combine kernels
   where a row has no live entry (replaces ``_fused_spmm_max_kernel`` /
   ``hbp_spmm_fused_max``).
 
+The two sum kernels walk the chunk index of
+:class:`~repro_torch.kernels.ops.DeviceTiles`: no thread chains more than
+``ops.RUN_CHUNK`` tiles, and the runs cut into several chunks are folded
+in chunk order by a second kernel of the same launch call, through a
+chunk buffer ``[n_split_chunks, group(, k)]`` that the wrapper allocates.
+The max kernel still walks each row group's whole run in one thread.
+
 The two-phase kernels (``csrc/hbp_partials.cu``) return one partial block
 per tile, ``[n_tiles, group(, k)]``, and leave the combine over each row
 group's run of tiles to the caller (``ops``):
@@ -64,10 +71,10 @@ def hbp_spmm_fused_plain(dt, x: torch.Tensor) -> torch.Tensor:
 
     Each tile's lanes are chained in order (:func:`ref.lane_chain`), then
     each row group's tiles are summed in stream order over its run.  The
-    kernel keeps one chain across the whole run and fuses each multiply
-    and add, so the two agree to rounding, not bitwise.  Every step is
-    elementwise or a per-element run sum, so a column's bits do not
-    depend on the batch width here either.
+    kernel keeps one fused multiply-add chain across each chunk of at most
+    ``RUN_CHUNK`` tiles and adds the chunks in order, so the two agree to
+    rounding, not bitwise.  Every step is elementwise or a per-element run
+    sum, so a column's bits do not depend on the batch width here either.
     """
     contrib = _ref.lane_chain(dt.colblock, dt.data, dt.cols, x, dt.col_block)
     return _ref.segment_sum_sorted(contrib, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)
@@ -119,10 +126,10 @@ def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, count: int, *k: int) -> None:
+def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, counts, *k: int) -> None:
     """Launch ``fn_name`` of library ``lib`` with the C signature's order:
-    the pointers of ``tensors``, the run or tile ``count``, the tile
-    geometry, ``k`` (SpMM only), the device and the stream."""
+    the pointers of ``tensors``, the run, chunk or tile ``counts``, the
+    tile geometry, ``k`` (SpMM only), the device and the stream."""
     from .build import library
 
     for t in tensors:
@@ -132,21 +139,35 @@ def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, count: int, *k
         raise TypeError(f"{fn_name}: tiles must be f32 data and i32 cols")
     _, group, lane = dt.data.shape
     err = getattr(library(lib), fn_name)(
-        *(t.data_ptr() for t in tensors), count, group, lane, dt.col_block, *k,
+        *(t.data_ptr() for t in tensors), *counts, group, lane, dt.col_block, *k,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
 
 
-def _fused(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *k: int) -> None:
-    tensors = (dt.data, dt.cols, dt.colblock, dt.run_start, dt.run_rowgroup, x, y)
-    _launch("hbp_spmv", fn_name, tensors, dt, x, dt.run_rowgroup.shape[0], *k)
+def _fused_sum(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *k: int) -> None:
+    """Launch the chunk chains and the fold of the split runs into ``y``;
+    the chunk buffer is allocated here, uninitialised (every row is
+    written by the chains before the fold reads it)."""
+    # the chains read each tile row as 16-byte vectors
+    if dt.data.data_ptr() % 16 or dt.cols.data_ptr() % 16:
+        raise ValueError(f"{fn_name}: tile data and cols must be 16-byte aligned")
+    group = dt.data.shape[1]
+    partial = torch.empty(
+        (dt.n_split_chunks, group, *k), dtype=torch.float32, device=x.device
+    )
+    tensors = (
+        dt.data, dt.cols, dt.colblock, dt.chunk_start, dt.chunk_dest, dt.run_chunk,
+        dt.split_run, dt.run_rowgroup, x, partial, y,
+    )
+    counts = (dt.chunk_dest.shape[0], dt.split_run.shape[0])
+    _launch("hbp_spmv", fn_name, tensors, dt, x, counts, *k)
 
 
 def _partials(fn_name: str, dt, x: torch.Tensor, out: torch.Tensor, *k: int) -> None:
     tensors = (dt.data, dt.cols, dt.colblock, x, out)
-    _launch("hbp_partials", fn_name, tensors, dt, x, dt.n_tiles, *k)
+    _launch("hbp_partials", fn_name, tensors, dt, x, (dt.n_tiles,), *k)
 
 
 def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
@@ -158,7 +179,7 @@ def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((dt.n_rowgroups, group), dtype=torch.float32, device=x.device)
     if dt.run_rowgroup.shape[0] == 0:
         return y  # no tiles: nothing to launch
-    _fused("hbp_spmv_fused_launch", dt, x, y)
+    _fused_sum("hbp_spmv_fused_launch", dt, x, y)
     hbp_spmv_fused.launches += 1
     return y
 
@@ -173,7 +194,7 @@ def hbp_spmm_fused(dt, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((dt.n_rowgroups, group, k), dtype=torch.float32, device=x.device)
     if dt.run_rowgroup.shape[0] == 0 or k == 0:
         return y
-    _fused("hbp_spmm_fused_launch", dt, x, y, k)
+    _fused_sum("hbp_spmm_fused_launch", dt, x, y, k)
     hbp_spmm_fused.launches += 1
     return y
 
@@ -197,7 +218,8 @@ def hbp_spmm_fused_max(dt, x: torch.Tensor) -> torch.Tensor:
     )
     if dt.run_rowgroup.shape[0] == 0 or k == 0:
         return y
-    _fused("hbp_spmm_fused_max_launch", dt, x, y, k)
+    tensors = (dt.data, dt.cols, dt.colblock, dt.run_start, dt.run_rowgroup, x, y)
+    _launch("hbp_spmv", "hbp_spmm_fused_max_launch", tensors, dt, x, (dt.run_rowgroup.shape[0],), k)
     hbp_spmm_fused_max.launches += 1
     return y
 

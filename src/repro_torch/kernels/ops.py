@@ -40,6 +40,7 @@ from . import ref as _ref
 __all__ = [
     "DeviceTiles",
     "device_tiles",
+    "chunk_index",
     "resolve_device",
     "hbp_spmv",
     "hbp_spmm",
@@ -49,6 +50,7 @@ __all__ = [
     "K_BUCKETS",
     "K_CHUNK",
     "K_TILINGS",
+    "RUN_CHUNK",
     "STRATEGIES",
     "COMBINES",
     "check_strategy",
@@ -72,6 +74,12 @@ K_CHUNK = 128
 # entries written under either stay valid; the two give the same bits.
 K_TILINGS = ("grid", "loop")
 
+# Most tiles one thread of the fused sum kernels walks: device_tiles cuts
+# every row group's run into chunks of at most this many tiles, and runs
+# of more than one chunk are folded after the chunk chains (csrc/hbp_spmv.cu).
+# Chosen on the card from 8, 16, 32 and 64 on m4_kron16 (PERF.md).
+RUN_CHUNK = 32
+
 STRATEGIES = ("fused", "partials", "stable", "reference")
 
 COMBINES = ("sum", "max")
@@ -88,11 +96,20 @@ class DeviceTiles:
     """Device-resident HBP tile format.
 
     The tile arrays of :class:`~repro_torch.core.tile.HBPTiles` plus the
-    run index the CUDA kernels walk: tiles are sorted by (row group,
-    column block), so each non-empty row group owns one contiguous run
+    run index: tiles are sorted by (row group, column block), so each
+    non-empty row group owns one contiguous run
     ``[run_start[r], run_start[r + 1])``.  Row groups with no tiles have
     no run and come out 0 (the caller's zero-filled output), which takes
     the place of the JAX package's ``visited`` mask.
+
+    The chunk index the fused sum kernels walk cuts each run into
+    consecutive chunks of at most :data:`RUN_CHUNK` tiles, chunk ``i``
+    being tiles ``[chunk_start[i], chunk_start[i + 1])`` and run ``r``
+    chunks ``[run_chunk[r], run_chunk[r + 1])``.  A chunk of a one-chunk
+    run writes its row group (``chunk_dest >= 0``); a chunk of a split
+    run writes row ``~chunk_dest`` of the chunk buffer, whose rows follow
+    chunk order, and ``split_run`` lists the split runs to fold.  The
+    boundaries depend on the tiles alone, never on the RHS width.
     """
 
     rowgroup: torch.Tensor  # i32[T]
@@ -103,6 +120,11 @@ class DeviceTiles:
     run_start: torch.Tensor  # i32[n_runs + 1]
     run_rowgroup: torch.Tensor  # i32[n_runs], strictly increasing
     rg_lengths: torch.Tensor  # i64[n_rowgroups]: tiles per row group
+    chunk_start: torch.Tensor  # i32[n_chunks + 1]
+    run_chunk: torch.Tensor  # i32[n_runs + 1]
+    chunk_dest: torch.Tensor  # i32[n_chunks]: row group, or ~(chunk buffer row)
+    split_run: torch.Tensor  # i32[n_split]: runs of more than one chunk
+    n_split_chunks: int  # rows of the chunk buffer
     n_rowgroups: int
     shape: Tuple[int, int]
     col_block: int
@@ -127,6 +149,16 @@ class DeviceTiles:
         """Device bytes the staged tensors occupy."""
         return int(sum(t.nbytes for t in self.tensors()))
 
+    @property
+    def chunk_index_nbytes(self) -> int:
+        """Bytes of the chunk index the fused sum kernels read."""
+        return int(sum(t.nbytes for t in (
+            self.chunk_start, self.run_chunk, self.chunk_dest, self.split_run)))
+
+    def chunk_buffer_nbytes(self, k: int) -> int:
+        """Bytes of the split runs' chunk partials at RHS width ``k``."""
+        return self.n_split_chunks * int(self.data.shape[1]) * k * 4
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card; a CUDA device with no card present raises."""
@@ -139,13 +171,33 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def chunk_index(run_start: np.ndarray, run_rowgroup: np.ndarray, limit: int):
+    """The chunk index of runs ``run_start`` (see :class:`DeviceTiles`).
+
+    A run of ``L`` tiles becomes ``ceil(L / limit)`` chunks of near-equal
+    length (``limit`` at most), in stream order.  Returns ``chunk_start``,
+    ``run_chunk``, ``chunk_dest`` and ``split_run`` as int64 arrays.
+    """
+    lengths = np.diff(run_start)
+    per_run = -(-lengths // limit)
+    run_chunk = np.zeros(lengths.size + 1, np.int64)
+    np.cumsum(per_run, out=run_chunk[1:])
+    run_of = np.repeat(np.arange(lengths.size), per_run)
+    j = np.arange(run_chunk[-1]) - run_chunk[run_of]  # position in its run
+    starts = run_start[run_of] + j * lengths[run_of] // per_run[run_of]
+    chunk_start = np.append(starts, run_start[-1])
+    split = (per_run > 1)[run_of]
+    chunk_dest = np.where(split, ~(np.cumsum(split) - 1), run_rowgroup[run_of])
+    return chunk_start, run_chunk, chunk_dest, np.flatnonzero(per_run > 1)
+
+
 def device_tiles(tiles: HBPTiles, device=None) -> DeviceTiles:
     """Stage ``tiles`` on ``device`` (default: the card) with the run index.
 
     Checks on the host, once, what the kernels rely on: each row group's
     tiles form one run (row groups strictly increase from run to run), and
     every slot's x row ``colblock * col_block + col`` lies inside the
-    matrix's columns.
+    matrix's columns.  Builds the chunk index at :data:`RUN_CHUNK`.
     """
     dev = resolve_device(device)
     T = tiles.n_tiles
@@ -172,6 +224,8 @@ def device_tiles(tiles: HBPTiles, device=None) -> DeviceTiles:
             raise ValueError("a tile slot reads past the matrix's columns")
     run_start = np.append(starts, T)
     lengths = np.bincount(rowgroup, minlength=tiles.n_rowgroups)
+    chunk_start, run_chunk, chunk_dest, split_run = chunk_index(
+        run_start, run_rowgroup, RUN_CHUNK)
 
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
@@ -185,6 +239,11 @@ def device_tiles(tiles: HBPTiles, device=None) -> DeviceTiles:
         run_start=put(run_start, torch.int32),
         run_rowgroup=put(run_rowgroup, torch.int32),
         rg_lengths=put(lengths, torch.int64),
+        chunk_start=put(chunk_start, torch.int32),
+        run_chunk=put(run_chunk, torch.int32),
+        chunk_dest=put(chunk_dest, torch.int32),
+        split_run=put(split_run, torch.int32),
+        n_split_chunks=int(np.count_nonzero(chunk_dest < 0)),
         n_rowgroups=int(tiles.n_rowgroups),
         shape=(int(tiles.shape[0]), int(tiles.shape[1])),
         col_block=int(tiles.cfg.col_block),
@@ -219,15 +278,20 @@ def stream_passes(k: int, strategy: str, k_tiling: str) -> int:
     return 1
 
 
-def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) -> int:
+def modeled_launch_bytes(
+    dt: DeviceTiles, k: int, strategy: str, k_tiling: str, combine: str = "sum"
+) -> int:
     """Modeled device-memory bytes one SpMM call moves (the bandwidth ledger).
 
     The tile stream (data f32 + cols i32 + the per-tile column block and
     the run index) is paid once per stream pass; each stored slot gathers
     one f32 of x per RHS column; the output block is written once.  Under
     ``"partials"`` the per-tile partials buffer (``T * group * k`` f32) is
-    written by the kernel and read back by the combine.  A model, not a
-    measurement: it assumes no cache reuse of the gathers.
+    written by the kernel and read back by the combine.  The fused sum
+    kernels read the chunk index once per pass, and write the chunk buffer
+    of the split runs (``n_split_chunks * group * k`` f32) and read it back
+    once.  A model, not a measurement: it assumes no cache reuse of the
+    gathers.
     """
     passes = stream_passes(k, strategy, k_tiling)
     stream = dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes
@@ -236,8 +300,12 @@ def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) 
     gathers = dt.data.numel() * k * 4
     group = dt.data.shape[1]
     out = dt.n_rowgroups * group * k * 4
-    partials = 2 * dt.n_tiles * group * k * 4 if strategy == "partials" else 0
-    return int(passes * stream + gathers + out + partials)
+    extra = 0
+    if strategy == "partials":
+        extra = 2 * dt.n_tiles * group * k * 4
+    elif strategy == "fused" and combine == "sum":
+        extra = passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
+    return int(passes * stream + gathers + out + extra)
 
 
 def _record_launch(
@@ -250,7 +318,8 @@ def _record_launch(
         "kernels.launches", op=op, strategy=strategy, k_tiling=k_tiling, combine=combine
     ).inc()
     obs.counter("kernels.traversals").inc(stream_passes(k, strategy, k_tiling))
-    obs.counter("kernels.bytes_modeled").inc(modeled_launch_bytes(dt, k, strategy, k_tiling))
+    obs.counter("kernels.bytes_modeled").inc(
+        modeled_launch_bytes(dt, k, strategy, k_tiling, combine))
     obs.counter("kernels.k_tiling", choice=k_tiling).inc()
     obs.histogram("kernels.launch_k").observe(k)
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PartitionConfig, build_tiles
+from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo
 from repro_torch.core.matrices import banded_fem, circuit, rmat
 from repro_torch.kernels import ops
 from repro_torch.kernels.hbp_spmv import (
@@ -29,6 +29,8 @@ from repro_torch.kernels.hbp_spmv import (
     hbp_spmv_partials,
     hbp_spmv_partials_plain,
 )
+
+from hub_runs import hub_config, hub_coo
 
 pytestmark = pytest.mark.gpu
 
@@ -193,3 +195,60 @@ def test_served_answers_equal_matvec_on_the_card(cuda, tmp_path, strategy):
         for x, t in zip(xs, tickets):
             assert np.array_equal(t.result(), plan.matvec(x).cpu().numpy())
         assert eng.inflight() == 0
+
+
+# --- the chunked fused sum kernels on runs longer than RUN_CHUNK ------------
+
+
+def _hub(cuda, lane):
+    rows, cols, vals, shape = hub_coo(ops.RUN_CHUNK, lane)
+    tiles = build_tiles(csr_from_coo(COOMatrix(rows, cols, vals, shape)),
+                        PartitionConfig(**hub_config(lane)))
+    dt = ops.device_tiles(tiles, cuda)
+    lengths = np.diff(dt.run_start.cpu().numpy())
+    assert lengths.max() > 4 * ops.RUN_CHUNK and dt.n_split_chunks > 0
+    return tiles, dt
+
+
+@pytest.mark.parametrize("lane", [8, 128, 12])
+def test_hub_runs_match_plain_and_spmv_is_the_spmm_column(cuda, lane):
+    """Split runs (chunk chains, then the ordered fold) against the plain
+    versions; SpMV bitwise the SpMM column at every width."""
+    _, dt = _hub(cuda, lane)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(dt.shape[1], device=cuda, generator=g)
+    y = hbp_spmv_fused(dt, x)
+    _close(y, hbp_spmv_fused_plain(dt, x))
+    for k in (1, 3, 8, 128, 129, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, k // 2] = x
+        Y = hbp_spmm_fused(dt, X)
+        _close(Y, hbp_spmm_fused_plain(dt, X))
+        assert torch.equal(Y[..., k // 2], y), k
+
+
+@pytest.mark.parametrize("lane", [8, 128, 12])
+def test_hub_runs_grid_equals_loop_and_empty_groups_are_zero(cuda, lane):
+    tiles, dt = _hub(cuda, lane)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    X = torch.randn(dt.shape[1], 256, device=cuda, generator=g)
+    assert torch.equal(ops.hbp_spmm(dt, X, k_tiling="grid"), ops.hbp_spmm(dt, X, k_tiling="loop"))
+    empty = torch.as_tensor(np.setdiff1d(np.arange(tiles.n_rowgroups), tiles.rowgroup),
+                            device=cuda)
+    assert empty.numel()
+    assert bool(torch.all(hbp_spmm_fused(dt, X[:, :8].contiguous())[empty] == 0))
+    assert bool(torch.all(hbp_spmv_fused(dt, X[:, 0].contiguous())[empty] == 0))
+
+
+def test_hub_fused_launch_counters_count_launches_only(cuda):
+    """One wrapper call is one count, though the split runs take a second
+    kernel (the fold); the plain versions count nothing."""
+    _, dt = _hub(cuda, 8)
+    x = torch.ones(dt.shape[1], device=cuda)
+    X = x[:, None].repeat(1, 8)
+    before = (hbp_spmv_fused.launches, hbp_spmm_fused.launches)
+    hbp_spmv_fused(dt, x)
+    hbp_spmm_fused(dt, X)
+    hbp_spmv_fused_plain(dt, x)
+    hbp_spmm_fused_plain(dt, X)
+    assert (hbp_spmv_fused.launches, hbp_spmm_fused.launches) == (before[0] + 1, before[1] + 1)

@@ -33,6 +33,8 @@ from repro_torch.kernels.hbp_spmv import (
     hbp_spmv_partials,
 )
 
+from hub_runs import hub_config, hub_coo
+
 KS = (1, 3, 8, 128, 129, 256)
 LANES = (8, 128)
 FIELDS = ("data", "cols", "rowgroup", "colblock", "first", "perm")
@@ -57,8 +59,9 @@ def _pair(dense, lane):
     return _pair_csr(jcore.csr_from_dense(dense), lane)
 
 
-def _pair_csr(csr, lane):
-    cfg = jcore.PartitionConfig(row_block=32, col_block=32, group=8, lane=lane)
+def _pair_csr(csr, lane, **geometry):
+    geometry = geometry or dict(row_block=32, col_block=32, group=8)
+    cfg = jcore.PartitionConfig(**{**geometry, "lane": lane})
     tj = jcore.build_tiles(csr, cfg)
     d = {f: getattr(tj, f) for f in FIELDS}
     d.update(shape=tj.shape, n_rowgroups=tj.n_rowgroups, cfg=dataclasses.asdict(cfg))
@@ -294,8 +297,24 @@ def test_traffic_model_charges_the_partials_buffer(tiles):
     _, dt = tiles
     T, group = dt.n_tiles, dt.data.shape[1]
     for k in (1, 8, 256):
+        # the fused bytes without the chunk index and the chunk buffer
         fused = tops.modeled_launch_bytes(dt, k, "fused", "grid")
+        fused -= dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
         assert tops.modeled_launch_bytes(dt, k, "partials", "grid") == fused + 2 * T * group * k * 4
+
+
+def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
+    """The fused sum pays the chunk index once per stream pass and the
+    split runs' chunk buffer written and read once; the fused max (the
+    serial-run kernel) pays neither."""
+    _, dt = hub
+    assert dt.n_split_chunks > 0
+    for k, kt in ((1, "grid"), (8, "grid"), (256, "grid"), (256, "loop")):
+        fused = tops.modeled_launch_bytes(dt, k, "fused", kt)
+        fused_max = tops.modeled_launch_bytes(dt, k, "fused", kt, combine="max")
+        passes = tops.stream_passes(k, "fused", kt)
+        assert dt.chunk_buffer_nbytes(k) == dt.n_split_chunks * 8 * k * 4
+        assert fused - fused_max == passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
 
 
 def test_deferred_paths_raise_not_implemented(tiles):
@@ -328,3 +347,119 @@ def test_wrappers_check_their_operands(tiles):
     assert tops.hbp_spmv(dt, x, device="cpu").shape == (dt.shape[0],)
     with pytest.raises(ValueError, match="staged on"):
         tops.hbp_spmv(dt, x, device="meta")
+
+
+# --- the chunk index of the fused sum kernels --------------------------------
+
+
+@pytest.fixture(scope="module")
+def hub():
+    """Tiles with a hub run of more than 4 * RUN_CHUNK tiles, runs of
+    exactly RUN_CHUNK and RUN_CHUNK + 1 tiles, one-tile runs and empty row
+    groups (tests/hub_runs.py), built by the JAX package and staged by the
+    port."""
+    rows, cols, vals, shape = hub_coo(tops.RUN_CHUNK, 8)
+    csr = jcore.csr_from_coo(jcore.COOMatrix(rows, cols, vals, shape))
+    geometry = {k: v for k, v in hub_config(8).items() if k != "lane"}
+    return _pair_csr(csr, 8, **geometry)
+
+
+def _runs(dt):
+    return np.diff(dt.run_start.numpy())
+
+
+def test_hub_matrix_has_the_runs_it_promises(hub):
+    tj, dt = hub
+    C = tops.RUN_CHUNK
+    lengths = _runs(dt)
+    assert lengths.max() > 4 * C
+    assert {C, C + 1, 1} <= set(lengths.tolist())
+    assert len(np.unique(tj.rowgroup)) < tj.n_rowgroups  # empty row groups
+
+
+def test_chunks_tile_every_run_once_in_order(hub):
+    _, dt = hub
+    cs = dt.chunk_start.numpy()
+    assert cs[0] == 0 and cs[-1] == dt.n_tiles
+    assert np.all(np.diff(cs) >= 1)  # in stream order, none empty
+    # every run boundary is a chunk boundary, so chunks cover each run once
+    assert np.isin(dt.run_start.numpy(), cs).all()
+
+
+def test_no_chunk_exceeds_run_chunk_or_crosses_a_run(hub):
+    _, dt = hub
+    cs = dt.chunk_start.numpy()
+    assert np.diff(cs).max() <= tops.RUN_CHUNK
+    run_of_first = np.searchsorted(dt.run_start.numpy(), cs[:-1], side="right") - 1
+    run_of_last = np.searchsorted(dt.run_start.numpy(), cs[1:] - 1, side="right") - 1
+    np.testing.assert_array_equal(run_of_first, run_of_last)
+
+
+def test_run_chunk_agrees_with_run_start(hub):
+    _, dt = hub
+    rc, cs, rs = dt.run_chunk.numpy(), dt.chunk_start.numpy(), dt.run_start.numpy()
+    assert rc.size == rs.size and rc[0] == 0 and rc[-1] == dt.chunk_dest.shape[0]
+    np.testing.assert_array_equal(cs[rc], rs)
+    np.testing.assert_array_equal(np.diff(rc), -(-_runs(dt) // tops.RUN_CHUNK))
+
+
+def test_chunk_dest_and_split_runs(hub):
+    """One-chunk runs write their row group; the chunks of split runs
+    write consecutive chunk-buffer rows, in chunk order."""
+    _, dt = hub
+    rc, dest = dt.run_chunk.numpy(), dt.chunk_dest.numpy()
+    split = np.flatnonzero(np.diff(rc) > 1)
+    np.testing.assert_array_equal(dt.split_run.numpy(), split)
+    whole = np.diff(rc) == 1
+    np.testing.assert_array_equal(dest[rc[:-1][whole]], dt.run_rowgroup.numpy()[whole])
+    buffer_rows = np.concatenate([np.arange(rc[r], rc[r + 1]) for r in split])
+    np.testing.assert_array_equal(~dest[buffer_rows], np.arange(buffer_rows.size))
+    assert dt.n_split_chunks == buffer_rows.size == np.count_nonzero(dest < 0)
+
+
+def test_staged_bytes_count_the_chunk_index(hub):
+    _, dt = hub
+    assert dt.nbytes == sum(t.nbytes for t in dt.tensors())
+    assert dt.chunk_index_nbytes == sum(
+        t.nbytes for t in (dt.chunk_start, dt.run_chunk, dt.chunk_dest, dt.split_run)
+    )
+
+
+@pytest.mark.parametrize("limit", [1, 2, 3, 5, 8])
+def test_chunk_index_at_any_limit(limit):
+    """Balanced chunks of at most ``limit`` tiles, the fewest that fit."""
+    lengths = np.array([1, 2, 3, 7, 8, 9, 16, 17, 40])
+    run_start = np.concatenate([[0], np.cumsum(lengths)])
+    run_rowgroup = np.arange(lengths.size) * 3 + 1
+    cs, rc, dest, split = tops.chunk_index(run_start, run_rowgroup, limit)
+    sizes = np.diff(cs)
+    assert sizes.min() >= 1 and sizes.max() <= limit
+    np.testing.assert_array_equal(cs[rc], run_start)
+    n = np.diff(rc)
+    np.testing.assert_array_equal(n, -(-lengths // limit))
+    for r in range(lengths.size):  # near-equal within each run
+        own = sizes[rc[r] : rc[r + 1]]
+        assert own.max() - own.min() <= 1
+    np.testing.assert_array_equal(split, np.flatnonzero(n > 1))
+    np.testing.assert_array_equal(dest[rc[:-1][n == 1]], run_rowgroup[n == 1])
+
+
+def test_empty_matrix_has_an_empty_chunk_index():
+    _, dt = _pair(np.zeros((20, 30), np.float32), 8)
+    assert dt.chunk_start.tolist() == [0] and dt.run_chunk.tolist() == [0]
+    assert dt.chunk_dest.numel() == dt.split_run.numel() == dt.n_split_chunks == 0
+
+
+@pytest.mark.parametrize("k", [None, 1, 8, 129])
+def test_hub_fused_matches_jax(hub, k):
+    """The CPU fused entry on the hub tiles against the JAX fused entry."""
+    tj, dt = hub
+    rng = np.random.default_rng(13)
+    if k is None:
+        x = rng.standard_normal(tj.shape[1]).astype(np.float32)
+        y_j = jops.hbp_spmv(tj, x, strategy="fused", interpret=True)
+        _close(tops.hbp_spmv(dt, x, strategy="fused", device="cpu"), y_j)
+    else:
+        X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
+        y_j = jops.hbp_spmm(tj, X, strategy="fused", interpret=True)
+        _close(tops.hbp_spmm(dt, X, strategy="fused", device="cpu"), y_j)
