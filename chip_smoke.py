@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; none is caught):
    ``rtol=1e-5, atol=1e-5 * max(1, |y_plain|_inf)``,
    maxima exactly.  The bitwise invariants: SpMV equals the SpMM column
    (k = 1, 8, 128 and under bucket padding) under ``"fused"`` and
-   ``"partials"``; ``grid`` equals ``loop`` at k = 256; ``"stable"`` is
+   ``"partials"``, and for the partials kernels on their scalar-column
+   path too (k = 3, 129, and k = 128 with x offset by one float);
+   ``grid`` equals ``loop`` at k = 256; ``"stable"`` is
    batch-width invariant; the max monoid gives one answer under
    ``"fused"``, ``"partials"`` and ``"stable"``, equal to a numpy f32 max
    of ``a * x`` over each row's stored entries on sampled columns.  Row
@@ -48,9 +50,12 @@ Phases (any failure exits non-zero; none is caught):
    |logits|_inf)``; the max kernels' launch counters must rise;
 7. times    — CUDA-event times of each kernel, its plain version and, for
    the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick
-   the port never calls) on ``m4_kron16``, and of the fused SpMV and SpMM
-   on ``m10_ohne2`` at k = 1 and 8, beside the least time the card could
-   take and the traffic of the fused sum kernels' chunk buffer.
+   the port never calls) on ``m4_kron16`` (the partials SpMM also at the
+   GNN hidden width k = 256), and of the fused SpMV and SpMM on
+   ``m10_ohne2`` at k = 1 and 8, beside the least time the card could
+   take for the kernel's own work (the partials kernels: tiles and x in,
+   the per-tile partials out) and the traffic of the fused sum kernels'
+   chunk buffer.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -297,6 +302,19 @@ def main() -> None:
             for name in ("hbp_spmm_fused_max", "hbp_spmm_partials_max"):
                 errs[name, label, k] = exactly(wrappers[name](d, X), plains[name](d, X),
                                                f"{label} {name} k={k}")
+        # the partials sum kernels' scalar-column path: k not a multiple of
+        # 4, and an x whose storage starts one float past a 16-byte boundary
+        for k, offset in ((3, False), (129, False), (128, True)):
+            X = torch.randn(d.shape[1], k, device=dev, generator=g)
+            X[:, k // 2] = x
+            if offset:
+                X = torch.empty(X.numel() + 1, device=dev)[1:].view(X.shape).copy_(X)
+                check(X.data_ptr() % 16 != 0, "the offset x is 16-byte aligned")
+            P = K.hbp_spmm_partials(d, X)
+            max_err_within(P, K.hbp_spmm_partials_plain(d, X),
+                           f"{label} hbp_spmm_partials k={k} offset={offset}")
+            check(torch.equal(P[..., k // 2], p),
+                  f"{label} hbp_spmm_partials: SpMV != SpMM column at k={k} offset={offset}")
         # through the entry points: bucket padding (5 -> 8), k tiling, and
         # the max monoid on every strategy against numpy
         X5 = torch.randn(d.shape[1], 5, device=dev, generator=g)
@@ -325,7 +343,9 @@ def main() -> None:
             + ", ".join(f"{n} k={k}: {e:.3e}" for (n, lab, k), e in errs.items()
                         if lab == label and not n.endswith("_max"))
             + "; max kernels exactly plain at k=1, 8, 128, 256; bitwise SpMV == SpMM column "
-              "(fused and partials, k=1, 8, 128, 256, bucket 5->8); grid == loop at k=256 "
+              "(fused and partials, k=1, 8, 128, 256, bucket 5->8; partials on the "
+              "scalar-column path at k=3, 129 and 128 with x offset by one float); "
+              "grid == loop at k=256 "
               "(sum and max); max equal under fused/partials/stable and to numpy on columns "
             + str(list(sampled)) + f"; {empty.numel()} empty row groups are 0")
     # "stable" (the torch lane chain) is batch-width invariant on the card
@@ -550,7 +570,8 @@ def main() -> None:
     cases = [("m4_kron16", "hbp_spmv_fused", 1), ("m4_kron16", "hbp_spmv_partials", 1)] + [
         ("m4_kron16", name, k) for k in (8, 128) for name in
         ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")
-    ] + [("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
+    ] + [("m4_kron16", "hbp_spmm_partials", 256),  # the GCN/SAGE hidden width
+         ("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
     for label, name, k in cases:
         csr, d, A_csr = timed[label]
         n_rows, n_cols = csr.shape
@@ -566,6 +587,11 @@ def main() -> None:
         # (torch.sparse.mm(reduce="amax") runs on the CPU only)
         library_ms = None if name.endswith("_max") else timed_ms(lambda: A_csr @ arg, 20)
         x_bytes, y_bytes = n_cols * k * 4, d.n_rowgroups * group * k * 4
+        if "partials" in name:
+            # the partials kernels' own work: the tiles and x in, one
+            # partial block per tile out
+            stream_bytes = d.data.nbytes + d.cols.nbytes + d.colblock.nbytes
+            y_bytes = T * group * k * 4
         bytes_bound = (stream_bytes + x_bytes + y_bytes) / peak_bw * 1e3
         ops_bound = 2.0 * T * group * lane * k / peak_flops * 1e3
         nnz_bound = max((csr.nnz * 8 + x_bytes + n_rows * k * 4) / peak_bw,
@@ -586,14 +612,10 @@ def main() -> None:
             row["chunk_buffer_bytes"] = buf
             row["chunk_buffer_ms"] = buf / peak_bw * 1e3
         if "partials" in name:
-            # the split's own traffic: the buffer written here and read
-            # back by the combine, and the combine and entry point's time
-            buf = 2 * T * group * k * 4
+            # the combine's time: it reads the partials back
             contrib = kern(d, arg)
             combine = ref.segment_max_sorted if name.endswith("_max") else ref.segment_sum_sorted
             view = contrib[..., None] if k == 1 else contrib
-            row["partials_buffer_bytes"] = buf
-            row["partials_buffer_ms"] = buf / peak_bw * 1e3
             row["combine_ms"] = timed_ms(
                 lambda: combine(view, d.rowgroup, d.n_rowgroups, d.rg_lengths), 10)
         # the whole entry point: kernel, combine, -inf mapping and unpermute

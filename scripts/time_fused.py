@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""Time the port's fused SpMV/SpMM kernels (sum) on one CUDA card.
+"""Time the port's SpMV/SpMM sum kernels (fused or partials) on one CUDA card.
 
-    python3 scripts/time_fused.py [--src DIR] [--label NAME] [--sweep 8,16,32,64]
+    python3 scripts/time_fused.py [--family fused|partials] [--src DIR] [--label NAME]
+                                  [--sweep 8,16,32,64] [--geometry-sweep]
                                   [--profile] [--out FILE]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so two trees, for instance a parent commit unpacked with ``git archive``
 and this one, can be timed with the same code on the same card, in turns
 (parent, change, change, parent).  Each tree's kernels build from its own
-``csrc``.  For ``m4_kron16`` (tuned geometry) at k = 1, 8, 128 and
-``m10_ohne2`` (lane 128) at k = 1, 8 it prints one JSON object per case:
-the kernel wrapper's CUDA-event time (the mean over launches filling
-``WINDOW_MS``), the whole ``ops`` entry point's,
-the kernel's max abs error against its plain version, the least time the
-card could take (tile stream, x and y over the card's memory rate) and
-one ``torch.sparse_csr_tensor`` product (cuSPARSE) as a yardstick; on a
-tree with a chunk index also the chunk chains alone (the fold skipped).
-``--profile`` adds the device time of each kernel the wrapper and the
-entry point launch, from ``torch.profiler``, which host launch overhead
-does not enter.
+``csrc``.  Every case prints one JSON object: the kernel wrapper's
+CUDA-event time (the mean over launches filling ``WINDOW_MS``), the whole
+``ops`` entry point's, the kernel's max abs error against its plain
+version, the least time the card could take for the kernel's own work
+(``bound_ms``: its inputs read once and its output written once over the
+card's memory rate), one ``torch.sparse_csr_tensor`` product (cuSPARSE)
+as a yardstick, and a SHA-256 of the kernel's output bytes, so that two
+trees can be checked bitwise on the same inputs (x is drawn from a seed
+per case).  ``--profile`` adds the device time of each kernel the wrapper,
+the entry point and the cuSPARSE product launch, from ``torch.profiler``,
+which host launch overhead does not enter.
 
+``--family fused`` (the default): kernels 1-2 on ``m4_kron16`` (tuned
+geometry) at k = 1, 8, 128 and ``m10_ohne2`` (lane 128) at k = 1, 8; on a
+tree with a chunk index also the chunk chains alone (the fold skipped).
 ``--sweep`` (trees with a chunk index only) re-stages ``m4_kron16``'s
 chunk index at each ``RUN_CHUNK`` listed and times the kernels there,
 whole and without the fold.
+
+``--family partials``: kernels 5-6 on ``m4_kron16`` at k = 1, 8, 128,
+256, ``m10_ohne2`` at k = 1, 8 and the hub-run matrix of
+``tests/hub_runs.py`` at k = 1, 8, 128, 256, with the combine
+(``segment_reduce`` over the partials) timed alone.  ``--geometry-sweep``
+(trees with ``partials_geometry`` only) times other launch geometries of
+the same kernels (columns and rows per thread, column units per slab).
 """
 import argparse
 import dataclasses
+import hashlib
 import importlib
 import json
 import re
@@ -74,15 +86,35 @@ def device_us(fn, calls: int = 50) -> dict:
     out["total"] = sum(out.values())
     return out
 
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128),
          ("m10_ohne2", 1), ("m10_ohne2", 8))
+PARTIALS_CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128), ("m4_kron16", 256),
+                  ("m10_ohne2", 1), ("m10_ohne2", 8),
+                  ("hub", 1), ("hub", 8), ("hub", 128), ("hub", 256))
+# (matrix, k) -> launch geometries (width, rows, slab) of --geometry-sweep
+GEOMETRIES = {
+    ("m4_kron16", 1): [(1, r, 1) for r in (1, 2, 4, 8)],
+    ("m4_kron16", 8): [(4, r, 2) for r in (1, 2, 4, 8)],
+    ("m4_kron16", 128): [(4, r, 32) for r in (1, 2, 4, 8)] + [(4, 4, 16)],
+    ("m4_kron16", 256): [(4, r, 32) for r in (1, 2, 4, 8)],
+    ("m10_ohne2", 1): [(1, r, 1) for r in (1, 2, 4)],
+    ("m10_ohne2", 8): [(4, r, 2) for r in (1, 2, 4)],
+}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="change")
+    ap.add_argument("--family", choices=("fused", "partials"), default="fused")
     ap.add_argument("--sweep", default="")
+    ap.add_argument("--geometry-sweep", action="store_true",
+                    help="partials: time other launch geometries of the same kernels")
     ap.add_argument("--out", default="")
     ap.add_argument("--profile", action="store_true",
                     help="add each case's device time per kernel (torch.profiler)")
@@ -91,13 +123,18 @@ def main() -> None:
         sys.exit("time_fused: needs a CUDA card")
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
-    from repro_torch.core import PartitionConfig, build_tiles, tuned_partition_config
+    from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo
+    from repro_torch.core import tuned_partition_config
     from repro_torch.core.matrices import SUITE_SPECS
     from repro_torch.kernels import build, ops
 
     if not Path(ops.__file__).resolve().is_relative_to(src):
         sys.exit(f"time_fused: imported {ops.__file__}, not from {src}")
+    from repro_torch.kernels import ref
+
     K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    sys.path.insert(0, str(ROOT / "tests"))
+    from hub_runs import hub_config, hub_coo
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -112,6 +149,10 @@ def main() -> None:
         "m4_kron16": (kron, ops.device_tiles(build_tiles(kron, tuned_partition_config(kron)), dev)),
         "m10_ohne2": (ohne, ops.device_tiles(build_tiles(ohne, PartitionConfig(lane=128)), dev)),
     }
+    if args.family == "partials":
+        hub = csr_from_coo(COOMatrix(*hub_coo(ops.RUN_CHUNK, 8)))
+        staged["hub"] = (hub, ops.device_tiles(build_tiles(hub, PartitionConfig(**hub_config(8))),
+                                               dev))
     rows = []
 
     def emit(row):
@@ -127,25 +168,78 @@ def main() -> None:
         X = torch.randn(dt.shape[1], k, device=dev, generator=g)
         return X[:, 0].contiguous() if k == 1 else X
 
-    for name, k in CASES:
-        csr, dt = staged[name]
-        arg = rhs(dt, k)
-        kern, plain = kernel_of(k)
-        err = (kern(dt, arg) - plain(dt, arg)).abs().max().item()
-        ms = steady_ms(lambda: kern(dt, arg))
-        entry = ops.hbp_spmv if k == 1 else ops.hbp_spmm
-        entry_ms = steady_ms(lambda: entry(dt, arg, strategy="fused"))
-        A = torch.sparse_csr_tensor(
+    def csr_tensor(csr):
+        return torch.sparse_csr_tensor(
             torch.as_tensor(csr.indptr, dtype=torch.int64),
             torch.as_tensor(csr.indices, dtype=torch.int64),
             torch.as_tensor(csr.data, dtype=torch.float32), size=csr.shape).to(dev)
+
+    if args.family == "partials":
+        for i, (name, k) in enumerate(PARTIALS_CASES):
+            csr, dt = staged[name]
+            g.manual_seed(1000 + i)  # the same x in every tree
+            arg = rhs(dt, k)
+            kern, plain = ((K.hbp_spmv_partials, K.hbp_spmv_partials_plain) if k == 1
+                           else (K.hbp_spmm_partials, K.hbp_spmm_partials_plain))
+            out = kern(dt, arg)
+            err = (out - plain(dt, arg)).abs().max().item()
+            digest = sha256(out)
+            view = out[..., None] if k == 1 else out
+            del out
+            entry = ops.hbp_spmv if k == 1 else ops.hbp_spmm
+            A = csr_tensor(csr)
+            T, group, _ = dt.data.shape
+            moved = (dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes + dt.shape[1] * k * 4
+                     + T * group * k * 4)
+            row = {"family": "partials", "matrix": name, "k": k,
+                   "ms": steady_ms(lambda: kern(dt, arg)),
+                   "entry_ms": steady_ms(lambda: entry(dt, arg, strategy="partials")),
+                   "combine_ms": steady_ms(lambda: ref.segment_sum_sorted(
+                       view, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)),
+                   "library_ms": steady_ms(lambda: A @ arg),
+                   "bound_ms": moved / peak_bw * 1e3, "max_abs_err": err, "sha256": digest}
+            if args.profile:
+                row["kernel_device_us"] = device_us(lambda: kern(dt, arg))
+                row["entry_device_us"] = device_us(lambda: entry(dt, arg, strategy="partials"))
+                row["library_device_us"] = device_us(lambda: A @ arg)
+            emit(row)
+            del view
+            sweep = GEOMETRIES.get((name, k), ()) if args.geometry_sweep else ()
+            for width, rows_, slab in sweep:
+                geo = K._geometry(dt.n_tiles, group, k, width, rows_, slab)
+                out = torch.empty((T, group, k), dtype=torch.float32, device=dev)
+
+                def launch():
+                    K._partials_sum("hbp_spmm_partials_launch", dt, arg, out, k, geometry=geo)
+
+                launch()
+                row = {"family": "partials", "geometry": [width, rows_, slab], "matrix": name,
+                       "k": k, "sha256": sha256(out), "ms": steady_ms(launch)}
+                if args.profile:
+                    row["kernel_device_us"] = device_us(launch)
+                emit(row)
+                del out
+
+    for i, (name, k) in enumerate(CASES if args.family == "fused" else ()):
+        csr, dt = staged[name]
+        g.manual_seed(2000 + i)  # the same x in every tree
+        arg = rhs(dt, k)
+        kern, plain = kernel_of(k)
+        out = kern(dt, arg)
+        err = (out - plain(dt, arg)).abs().max().item()
+        digest = sha256(out)
+        del out
+        ms = steady_ms(lambda: kern(dt, arg))
+        entry = ops.hbp_spmv if k == 1 else ops.hbp_spmm
+        entry_ms = steady_ms(lambda: entry(dt, arg, strategy="fused"))
+        A = csr_tensor(csr)
         library_ms = steady_ms(lambda: A @ arg)
         group = dt.data.shape[1]
         moved = (dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes + dt.run_start.nbytes
                  + dt.run_rowgroup.nbytes + dt.shape[1] * k * 4
                  + dt.n_rowgroups * group * k * 4)
         row = {"matrix": name, "k": k, "ms": ms, "entry_ms": entry_ms, "max_abs_err": err,
-               "bound_ms": moved / peak_bw * 1e3, "library_ms": library_ms}
+               "bound_ms": moved / peak_bw * 1e3, "library_ms": library_ms, "sha256": digest}
         if args.profile:
             row["kernel_device_us"] = device_us(lambda: kern(dt, arg))
             row["entry_device_us"] = device_us(lambda: entry(dt, arg, strategy="fused"))
@@ -158,7 +252,7 @@ def main() -> None:
             row["chains_ms"] = steady_ms(lambda: kern(chains, arg))
         emit(row)
 
-    if args.sweep:
+    if args.sweep and args.family == "fused":
         csr, dt = staged["m4_kron16"]
         rs, rr = dt.run_start.cpu().numpy(), dt.run_rowgroup.cpu().numpy()
 

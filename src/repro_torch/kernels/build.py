@@ -43,8 +43,8 @@ _SIGNATURES = {
         "hbp_spmm_fused_max_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
     },
     "hbp_partials": {
-        "hbp_spmv_partials_launch": [_ptr] * 5 + [_int] * 5 + [_ptr],
-        "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
+        "hbp_spmv_partials_launch": [_ptr] * 5 + [_int] * 11 + [_ptr],
+        "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
         "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
     },
 }

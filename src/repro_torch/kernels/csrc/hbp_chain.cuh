@@ -1,8 +1,10 @@
 // The lane chain shared by the HBP kernels for Hopper (sm_90a).
 //
-// Every kernel of hbp_spmv.cu and hbp_partials.cu computes its outputs
-// with tile_chain: one thread folds the slots of tiles [t0, t1), tiles in
-// stream order and lanes in order, into one accumulator under a monoid:
+// The kernels of hbp_spmv.cu and the max kernel of hbp_partials.cu compute
+// their outputs with tile_chain: one thread folds the slots of tiles
+// [t0, t1), tiles in stream order and lanes in order, into one accumulator
+// under a monoid (the partials sum kernels run the SumOp chain of one tile
+// for several rows and columns of a thread at once, hbp_partials.cu):
 //
 //   SumOp: acc = __fmaf_rn(d, x, acc), starting from 0;
 //   MaxOp: acc = fmaxf(acc, d != 0 ? __fmul_rn(d, x) : -inf), from -inf.

@@ -32,6 +32,11 @@ group's run of tiles to the caller (``ops``):
 * :func:`hbp_spmm_partials_max` (replaces ``_partials_spmm_max_kernel`` /
   ``hbp_spmm_partials_max``), ``-inf`` where a tile row has no live slot.
 
+The two sum kernels give each tile up to two warps of one block, in the
+launch geometry of :func:`partials_geometry`: its vector path (16-byte
+column quads) when k is a multiple of 4 and x is 16-byte aligned, its
+scalar-column path otherwise.  Both give the same bits.
+
 On a CUDA tensor a wrapper launches its kernel (the sources' header notes
 give the design and what bounds it) or raises; on a CPU tensor it runs the
 plain PyTorch version beside it.  Nothing falls back from one to the
@@ -46,11 +51,16 @@ every such row — padded slots included, which carry column 0 — lies below
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
 
 from . import ref as _ref
 
 __all__ = [
+    "PartialsGeometry",
+    "partials_geometry",
     "hbp_spmv_fused",
     "hbp_spmm_fused",
     "hbp_spmm_fused_max",
@@ -126,10 +136,11 @@ def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, counts, *k: int) -> None:
+def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, counts, *tail: int) -> None:
     """Launch ``fn_name`` of library ``lib`` with the C signature's order:
     the pointers of ``tensors``, the run, chunk or tile ``counts``, the
-    tile geometry, ``k`` (SpMM only), the device and the stream."""
+    tile geometry, ``tail`` (``k`` for SpMM, then the partials sum
+    kernels' launch geometry), the device and the stream."""
     from .build import library
 
     for t in tensors:
@@ -139,7 +150,7 @@ def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, counts, *k: in
         raise TypeError(f"{fn_name}: tiles must be f32 data and i32 cols")
     _, group, lane = dt.data.shape
     err = getattr(library(lib), fn_name)(
-        *(t.data_ptr() for t in tensors), *counts, group, lane, dt.col_block, *k,
+        *(t.data_ptr() for t in tensors), *counts, group, lane, dt.col_block, *tail,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -165,9 +176,79 @@ def _fused_sum(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *k: int) -> N
     _launch("hbp_spmv", fn_name, tensors, dt, x, counts, *k)
 
 
-def _partials(fn_name: str, dt, x: torch.Tensor, out: torch.Tensor, *k: int) -> None:
+# threads per block (kThreads of csrc/hbp_chain.cuh)
+THREADS = 256
+# column units a tile's threads cover in one slab of the grid
+SLAB = 32
+# threads a tile is given where k allows: two warps (on m4_kron16 faster
+# than one, four or eight, PERF.md)
+TILE_THREADS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialsGeometry:
+    """Launch geometry of the partials sum kernels (``csrc/hbp_partials.cu``).
+
+    A thread computes ``width`` consecutive columns (one column unit) of
+    ``rows`` consecutive rows of one tile.  A tile's ``tile_threads`` =
+    ``slab * group // rows`` threads are (row block, column unit), the unit
+    fastest; a block of ``block`` threads holds ``block // tile_threads``
+    tiles; ``grid`` is (tile blocks, slabs of ``slab`` column units).
+    """
+
+    width: int
+    rows: int
+    slab: int
+    block: int
+    grid: Tuple[int, int]
+
+
+def _geometry(n_tiles: int, group: int, k: int, width: int, rows: int,
+              slab: int) -> PartialsGeometry:
+    tile_threads = slab * (group // rows)
+    per_block = THREADS // tile_threads
+    units = -(-k // width)
+    return PartialsGeometry(width, rows, slab, per_block * tile_threads,
+                            (-(-n_tiles // per_block), -(-units // slab)))
+
+
+def partials_geometry(n_tiles: int, group: int, k: int, aligned: bool) -> PartialsGeometry:
+    """The launch of the partials sum kernels over ``n_tiles`` tiles of
+    ``group`` rows at width ``k`` (1 for SpMV).
+
+    The vector path (``width`` 4: float4 gathers and stores) needs k a
+    multiple of 4 and x and the output 16-byte ``aligned``; any other k
+    or x takes the scalar-column path (``width`` 1).  Each thread then
+    takes as many of a tile's rows (up to 8, dividing ``group``) as leave
+    a tile ``TILE_THREADS`` threads: at k = 128, 64 threads of 4 columns
+    and 4 rows each, two warps of one block per tile; at k <= 32 one row
+    per thread.
+    """
+    width = 4 if aligned and k % 4 == 0 else 1
+    slab = min(k // width, SLAB)
+    rows = 8
+    while rows > 1 and (group % rows or slab * group < TILE_THREADS * rows):
+        rows //= 2
+    slab = min(slab, THREADS * rows // group)
+    if slab < 1:
+        raise ValueError(f"partials kernels: group {group} does not fit a block")
+    return _geometry(n_tiles, group, k, width, rows, slab)
+
+
+def _partials_sum(fn_name: str, dt, x: torch.Tensor, out: torch.Tensor, *k: int,
+                  geometry: Optional[PartialsGeometry] = None) -> None:
+    """Launch a partials sum kernel in ``geometry`` (default: the one
+    :func:`partials_geometry` picks for these operands)."""
+    # the kernels read each tile row as 16-byte vectors
+    if dt.data.data_ptr() % 16 or dt.cols.data_ptr() % 16:
+        raise ValueError(f"{fn_name}: tile data and cols must be 16-byte aligned")
+    if geometry is None:
+        aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        geometry = partials_geometry(dt.n_tiles, dt.data.shape[1], k[0] if k else 1, aligned)
+    g = geometry
     tensors = (dt.data, dt.cols, dt.colblock, x, out)
-    _launch("hbp_partials", fn_name, tensors, dt, x, (dt.n_tiles,), *k)
+    _launch("hbp_partials", fn_name, tensors, dt, x, (dt.n_tiles,), *k,
+            g.width, g.rows, g.slab, g.block, *g.grid)
 
 
 def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
@@ -238,7 +319,7 @@ def hbp_spmv_partials(dt, x: torch.Tensor) -> torch.Tensor:
     out = _partials_out(dt, x)
     if dt.n_tiles == 0:
         return out
-    _partials("hbp_spmv_partials_launch", dt, x, out)
+    _partials_sum("hbp_spmv_partials_launch", dt, x, out)
     hbp_spmv_partials.launches += 1
     return out
 
@@ -252,7 +333,7 @@ def hbp_spmm_partials(dt, x: torch.Tensor) -> torch.Tensor:
     out = _partials_out(dt, x, k)
     if dt.n_tiles == 0 or k == 0:
         return out
-    _partials("hbp_spmm_partials_launch", dt, x, out, k)
+    _partials_sum("hbp_spmm_partials_launch", dt, x, out, k)
     hbp_spmm_partials.launches += 1
     return out
 
@@ -267,7 +348,8 @@ def hbp_spmm_partials_max(dt, x: torch.Tensor) -> torch.Tensor:
     out = _partials_out(dt, x, k)
     if dt.n_tiles == 0 or k == 0:
         return out
-    _partials("hbp_spmm_partials_max_launch", dt, x, out, k)
+    tensors = (dt.data, dt.cols, dt.colblock, x, out)
+    _launch("hbp_partials", "hbp_spmm_partials_max_launch", tensors, dt, x, (dt.n_tiles,), k)
     hbp_spmm_partials_max.launches += 1
     return out
 

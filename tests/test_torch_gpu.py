@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo
+from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo, csr_from_dense
 from repro_torch.core.matrices import banded_fem, circuit, rmat
 from repro_torch.kernels import ops
 from repro_torch.kernels.hbp_spmv import (
@@ -252,3 +252,63 @@ def test_hub_fused_launch_counters_count_launches_only(cuda):
     hbp_spmv_fused_plain(dt, x)
     hbp_spmm_fused_plain(dt, X)
     assert (hbp_spmv_fused.launches, hbp_spmm_fused.launches) == (before[0] + 1, before[1] + 1)
+
+
+# --- the partials sum kernels' vector and scalar-column paths ---------------
+
+
+def _offset(x):
+    """``x``'s values in storage that starts one float past a 16-byte boundary."""
+    y = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
+@pytest.mark.parametrize("lane", [8, 16, 32, 64, 128, 12])
+def test_partials_paths_give_one_chain_per_column(cuda, lane):
+    """Kernels 5-6 at widths on both paths (vector: k % 4 == 0 and x
+    aligned; scalar-column: any other k, or x offset by one float) against
+    the plain versions; one x column gets the same bits at every width
+    and on both paths, and the SpMV partials are that column."""
+    dt = _staged(cuda, "rmat", lane)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(dt.shape[1], device=cuda, generator=g)
+    p = hbp_spmv_partials(dt, x)
+    _close(p, hbp_spmv_partials_plain(dt, x))
+    assert torch.equal(hbp_spmv_partials(dt, _offset(x)), p)
+    for k in (1, 2, 3, 4, 8, 128, 129, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, k // 2] = x
+        P = hbp_spmm_partials(dt, X)
+        _close(P, hbp_spmm_partials_plain(dt, X))
+        assert torch.equal(P[..., k // 2], p), k
+        assert torch.equal(hbp_spmm_partials(dt, _offset(X)), P), k
+
+
+@pytest.mark.parametrize("lane", [8, 128, 12])
+def test_partials_keep_padded_slots_in_the_chain(cuda, lane):
+    """A tile row whose lanes are all padding comes out 0 for a finite x,
+    and NaN once x's first row of each column block (the padded slots'
+    column 0) is infinite: 0 * inf, as on the TPU, so padded slots are
+    never skipped."""
+    rng = np.random.default_rng(5)
+    dense = rng.standard_normal((256, 200)) * (rng.random((256, 200)) < 0.05)
+    dense[::3] = 0.0  # empty rows: tile rows of padding only
+    cfg = PartitionConfig(row_block=64, col_block=64, lane=lane)
+    tiles = build_tiles(csr_from_dense(dense.astype(np.float32)), cfg)
+    padding = torch.as_tensor((tiles.data != 0).sum(-1) == 0, device=cuda)
+    assert padding.any()
+    dt = ops.device_tiles(tiles, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for k in (1, 3, 8, 128):
+        X = torch.randn(200, k, device=cuda, generator=g)
+        P = hbp_spmm_partials(dt, X)
+        assert bool(torch.all(P[padding] == 0)), k
+        X[::64] = float("inf")
+        P = hbp_spmm_partials(dt, X)
+        assert bool(torch.all(torch.isnan(P[padding]))), k
+        torch.testing.assert_close(P, hbp_spmm_partials_plain(dt, X), equal_nan=True,
+                                   rtol=1e-5, atol=1e-5 * max(1.0, P.nan_to_num(0, 0, 0).abs().max().item()))
+        if k == 1:
+            p = hbp_spmv_partials(dt, X[:, 0].contiguous())
+            assert bool(torch.all(torch.isnan(p[padding])))

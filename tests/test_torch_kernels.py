@@ -31,6 +31,7 @@ from repro_torch.kernels.hbp_spmv import (
     hbp_spmv_fused,
     hbp_spmv_fused_plain,
     hbp_spmv_partials,
+    partials_geometry,
 )
 
 from hub_runs import hub_config, hub_coo
@@ -463,3 +464,49 @@ def test_hub_fused_matches_jax(hub, k):
         X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
         y_j = jops.hbp_spmm(tj, X, strategy="fused", interpret=True)
         _close(tops.hbp_spmm(dt, X, strategy="fused", device="cpu"), y_j)
+
+
+# --- the launch geometry of the partials sum kernels ------------------------
+
+
+def _covered(geo, n_tiles, group, k):
+    """Flat index ``(t * group + g) * k + c`` of every output element the
+    partials sum kernels write in launch geometry ``geo``: the index
+    arithmetic of ``hbp_partials_sum_kernel`` (``csrc/hbp_partials.cu``)
+    over every thread of the grid."""
+    tile_threads = geo.slab * (group // geo.rows)
+    by, bx, tid = np.meshgrid(np.arange(geo.grid[1]), np.arange(geo.grid[0]),
+                              np.arange(geo.block), indexing="ij")
+    j = tid % tile_threads
+    t = bx * (geo.block // tile_threads) + tid // tile_threads
+    c0 = (by * geo.slab + j % geo.slab) * geo.width
+    g0 = j // geo.slab * geo.rows
+    live = (t < n_tiles) & (c0 < k)
+    t, g0, c0 = (a[live][:, None, None] for a in (t, g0, c0))
+    r = np.arange(geo.rows)[None, :, None]
+    w = np.arange(geo.width)[None, None, :]
+    g, c = g0 + r, c0 + w
+    assert np.all(g < group) and np.all(c < k)
+    return ((t * group + g) * k + c).ravel()
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 12, 64, 128, 129, 136, 256, 300])
+def test_partials_geometry_covers_every_output_once(k, aligned):
+    """Every (tile, row, column) is written by exactly one thread, the
+    vector path is taken exactly when k % 4 == 0 and the pointers are
+    aligned, and a block fits the kernel's 256 threads.  The lane count
+    does not enter the geometry (it is the kernel's compile-time
+    specialisation)."""
+    for group in (8, 4, 12, 1, 64):
+        for n_tiles in (1, 37):
+            geo = partials_geometry(n_tiles, group, k, aligned)
+            assert geo.width == (4 if aligned and k % 4 == 0 else 1)
+            tile_threads = geo.slab * (group // geo.rows)
+            assert group % geo.rows == 0 and geo.block <= 256
+            assert geo.block % tile_threads == 0 and geo.grid[1] <= 65535
+            counts = np.bincount(_covered(geo, n_tiles, group, k), minlength=n_tiles * group * k)
+            assert counts.size == n_tiles * group * k and np.all(counts == 1), (group, n_tiles)
+    # at k = 128, two warps per tile: 64 threads of 4 columns and 4 rows
+    geo = partials_geometry(10, 8, 128, True)
+    assert (geo.width, geo.rows, geo.slab * 8 // geo.rows) == (4, 4, 64)
