@@ -25,7 +25,12 @@ Phases (any failure exits non-zero; none is caught):
    ``"fused"``, ``"partials"`` and ``"stable"``, equal to a numpy f32 max
    of ``a * x`` over each row's stored entries on sampled columns.  Row
    groups without tiles come out 0 (sum and max, every matrix) and an
-   all-negative row stays negative under max;
+   all-negative row stays negative under max.  NaN under max: with NaN in
+   x rows that live slots read (and in rows only padded slots read) on
+   ``m4_kron16``, the hub-run matrix and a matrix whose block-start
+   columns are empty, kernels 3-4 and the partials combine put NaN exactly
+   where their plain versions do (the rest bitwise), both entry points
+   agree with ``"stable"``, and the padding-only NaN changes nothing;
 4. serving  — ``MatrixRegistry(device="cuda")`` admits ``m4_kron16`` with
    the heuristic geometry and ``m1_asic320k`` with a measured search
    (CUDA-event probe); ``ServingEngine`` serves mixed k = 1..16 traffic
@@ -50,12 +55,13 @@ Phases (any failure exits non-zero; none is caught):
    |logits|_inf)``; the max kernels' launch counters must rise;
 7. times    — CUDA-event times of each kernel, its plain version and, for
    the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick
-   the port never calls) on ``m4_kron16`` (the partials SpMM also at the
-   GNN hidden width k = 256), and of the fused SpMV and SpMM on
-   ``m10_ohne2`` at k = 1 and 8, beside the least time the card could
-   take for the kernel's own work (the partials kernels: tiles and x in,
-   the per-tile partials out) and the traffic of the fused sum kernels'
-   chunk buffer.
+   the port never calls) on ``m4_kron16`` (the partials SpMM and both max
+   kernels also at the GNN hidden width k = 256), and of the fused SpMV
+   and SpMM on ``m10_ohne2`` at k = 1 and 8, beside the least time the
+   card could take for the kernel's own work (``kernel_bytes``: the
+   partials kernels read tiles and x and write the per-tile partials; the
+   fused kernels read tiles, run index and x and write y), and for the
+   fused kernels the traffic of their chunk buffer beside it.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -123,6 +129,21 @@ def card_peaks(name: str):
         if all(word in name for word in part.split()):
             return part, bw, flops
     fail(f"no peak rates known for {name!r}")
+
+
+def kernel_bytes(name: str, d, k: int) -> int:
+    """Bytes kernel ``name`` must move on staged tiles ``d`` at width ``k``:
+    each input read once, each output written once, as the TPU function
+    does.  The partials kernels read the tiles and x and write one
+    ``[T, group, k]`` block; the fused kernels read the tiles, the run
+    index and x and write y.  The fused kernels' own intermediates (the
+    chunk index and the split runs' chunk buffer) are not the function's
+    work and stay out of the bound."""
+    T, group, _ = d.data.shape
+    moved = d.data.nbytes + d.cols.nbytes + d.colblock.nbytes + d.shape[1] * k * 4
+    if "partials" in name:
+        return moved + T * group * k * 4
+    return moved + d.run_start.nbytes + d.run_rowgroup.nbytes + d.n_rowgroups * group * k * 4
 
 
 def timed_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -264,16 +285,17 @@ def main() -> None:
     hub = csr_from_coo(COOMatrix(*hub_coo(ops.RUN_CHUNK, 8)))
     dt_hub = ops.device_tiles(build_tiles(hub, PartitionConfig(**hub_config(8))), dev)
     matrices = (("m4_kron16", dt, kron), ("m10_ohne2", dt_ohne, ohne), ("hub", dt_hub, hub))
-    # the fused sum kernels walk chunks of at most RUN_CHUNK tiles of a
-    # row-group run, and fold the chunks of longer runs
+    # the fused kernels (sum and max) walk chunks of at most RUN_CHUNK
+    # tiles of a row-group run, and fold the chunks of longer runs
     for label, d, _ in matrices:
         run_len = np.diff(d.run_start.cpu().numpy())
         chain = np.diff(d.chunk_start.cpu().numpy())
         log(f"[kernels] {label} runs={run_len.size} tiles/run mean={run_len.mean():.1f} "
             f"max={run_len.max()}; RUN_CHUNK={ops.RUN_CHUNK} chunks={chain.size} "
-            f"split runs={d.split_run.numel()} ({d.n_split_chunks} chunks) longest chain="
-            f"{chain.max()} tiles; chunk buffer {d.chunk_buffer_nbytes(8)} B at k=8, "
-            f"{d.chunk_buffer_nbytes(128)} B at k=128")
+            f"split runs={d.split_run.numel()} ({d.n_split_chunks} chunks, folded by the fused "
+            f"sum and the fused max) longest chain={chain.max()} tiles; chunk buffer "
+            f"{d.chunk_buffer_nbytes(8)} B at k=8, {d.chunk_buffer_nbytes(128)} B at k=128, "
+            f"{d.chunk_buffer_nbytes(256)} B at k=256")
     check({ops.RUN_CHUNK, ops.RUN_CHUNK + 1} <= set(np.diff(dt_hub.run_start.cpu().numpy()))
           and dt_hub.n_split_chunks > 0, "the hub matrix lacks the runs it promises")
 
@@ -392,6 +414,56 @@ def main() -> None:
     log(f"[kernels] empty row groups are 0 (sum and max, fused and partials): {empty.size} of "
         f"{holes.n_rowgroups} (synthetic), m4_kron16 has {kron_empty}; the all-negative row "
         f"stays negative under max ({float(Ym[100, 0]):.4f})")
+
+    # NaN under the max monoid: a NaN in x that a live slot reads makes its
+    # output NaN (jnp.max in the JAX package); one that only padded slots
+    # read changes nothing (the first column of each block of ``pads``
+    # holds no entry).  Kernels 3-4 against their plain versions, the
+    # partials combine, and both entry points against "stable": NaN in the
+    # same places, every other element bitwise equal.
+    def same_bits(y, y_plain, what):
+        nan = torch.isnan(y_plain)
+        check(torch.equal(torch.isnan(y), nan)
+              and torch.equal(y[~nan].view(torch.int32), y_plain[~nan].view(torch.int32)),
+              f"{what}: NaN positions or bits differ")
+
+    pads_dense = dense.copy()
+    pads_cfg = PartitionConfig(lane=8)
+    pads_dense[:, ::pads_cfg.col_block] = 0.0
+    pads = build_tiles(csr_from_dense(pads_dense), pads_cfg)
+    nan_cases = (("m4_kron16", dt, (8, 256)), ("hub", dt_hub, (1, 8, 128)),
+                 ("pads", ops.device_tiles(pads, dev), (1, 8, 128)))
+    nan_rng = np.random.default_rng(5)
+    for label, d, widths in nan_cases:
+        data, cols = d.data.cpu().numpy(), d.cols.cpu().numpy()
+        x_row = d.colblock.cpu().numpy()[:, None, None].astype(np.int64) * d.col_block + cols
+        live = np.unique(x_row[data != 0])
+        padding_only = torch.as_tensor(np.setdiff1d(np.unique(x_row[data == 0]), live),
+                                       device=dev)
+        check(label != "pads" or padding_only.numel() > 0, "pads: no x row read by padding only")
+        n_nan = []
+        for k in widths:
+            X = torch.randn(d.shape[1], k, device=dev, generator=g)
+            X[torch.as_tensor(nan_rng.choice(live, 3, replace=False), device=dev)] = float("nan")
+            X[padding_only] = float("nan")
+            Yf, P = K.hbp_spmm_fused_max(d, X), K.hbp_spmm_partials_max(d, X)
+            check(bool(torch.isnan(Yf).any()), f"{label} k={k}: no NaN reached y")
+            same_bits(Yf, K.hbp_spmm_fused_max_plain(d, X), f"{label} fused max k={k}")
+            same_bits(P, K.hbp_spmm_partials_max_plain(d, X), f"{label} partials max k={k}")
+            combined = ref.segment_max_sorted(P, d.rowgroup, d.n_rowgroups, d.rg_lengths)
+            same_bits(combined, Yf, f"{label} partials combine k={k}")
+            stable = ops.hbp_spmm(d, X, strategy="stable", combine="max")
+            for strategy in ("fused", "partials"):
+                same_bits(ops.hbp_spmm(d, X, strategy=strategy, combine="max"), stable,
+                          f"{label} {strategy} entry k={k}")
+            X[padding_only] = 0.0
+            same_bits(K.hbp_spmm_fused_max(d, X), Yf, f"{label} fused max, padding-only NaN")
+            same_bits(K.hbp_spmm_partials_max(d, X), P, f"{label} partials max, padding-only NaN")
+            n_nan.append(int(torch.isnan(stable).sum()))
+        log(f"[kernels] NaN: {label} at k={list(widths)}: {n_nan} NaN outputs, kernels 3-4 and "
+            f"the partials combine carry them exactly as the plain versions, both entry points "
+            f"as stable; NaN in {padding_only.numel()} x rows read only by padded slots changed "
+            "nothing")
 
     # --- 4./5. serving: the fused and the partials registry ---------------
     asic = SUITE_SPECS["m1_asic320k"](0)
@@ -570,14 +642,12 @@ def main() -> None:
     cases = [("m4_kron16", "hbp_spmv_fused", 1), ("m4_kron16", "hbp_spmv_partials", 1)] + [
         ("m4_kron16", name, k) for k in (8, 128) for name in
         ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")
-    ] + [("m4_kron16", "hbp_spmm_partials", 256),  # the GCN/SAGE hidden width
-         ("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
+    ] + [("m4_kron16", name, 256)  # the GCN/SAGE hidden width
+         for name in ("hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")] + [
+        ("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
     for label, name, k in cases:
         csr, d, A_csr = timed[label]
         n_rows, n_cols = csr.shape
-        T, group, lane = d.data.shape
-        index_bytes = d.colblock.nbytes + d.run_start.nbytes + d.run_rowgroup.nbytes
-        stream_bytes = d.data.nbytes + d.cols.nbytes + index_bytes
         X = torch.randn(n_cols, k, device=dev, generator=g)
         arg = X[:, 0].contiguous() if k == 1 else X
         kern, plain = wrappers[name], plains[name]
@@ -586,14 +656,11 @@ def main() -> None:
         # no PyTorch call computes a max-monoid SpMM on CUDA
         # (torch.sparse.mm(reduce="amax") runs on the CPU only)
         library_ms = None if name.endswith("_max") else timed_ms(lambda: A_csr @ arg, 20)
-        x_bytes, y_bytes = n_cols * k * 4, d.n_rowgroups * group * k * 4
-        if "partials" in name:
-            # the partials kernels' own work: the tiles and x in, one
-            # partial block per tile out
-            stream_bytes = d.data.nbytes + d.cols.nbytes + d.colblock.nbytes
-            y_bytes = T * group * k * 4
-        bytes_bound = (stream_bytes + x_bytes + y_bytes) / peak_bw * 1e3
-        ops_bound = 2.0 * T * group * lane * k / peak_flops * 1e3
+        x_bytes = n_cols * k * 4
+        bytes_bound = kernel_bytes(name, d, k) / peak_bw * 1e3
+        # a multiply and an add (or max) per stored entry and column: what
+        # this data needs, padded slots not counted
+        ops_bound = 2.0 * csr.nnz * k / peak_flops * 1e3
         nnz_bound = max((csr.nnz * 8 + x_bytes + n_rows * k * 4) / peak_bw,
                         2.0 * csr.nnz * k / peak_flops) * 1e3
         source, replaces = KERNELS[name]
@@ -605,9 +672,9 @@ def main() -> None:
             "library_ms": library_ms, "matrix": label, "k": k,
             "nnz_bound_ms": nnz_bound, "card": smi_line,
         }
-        if name in ("hbp_spmv_fused", "hbp_spmm_fused"):
+        if "fused" in name:
             # the split runs' chunk partials, written by the chains and
-            # read back by the fold
+            # read back by the fold (beside bound_ms, not in it)
             buf = 2 * d.chunk_buffer_nbytes(k)
             row["chunk_buffer_bytes"] = buf
             row["chunk_buffer_ms"] = buf / peak_bw * 1e3

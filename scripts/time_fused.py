@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's SpMV/SpMM sum kernels (fused or partials) on one CUDA card.
+"""Time the port's SpMV/SpMM kernels (fused or partials sum, or the max) on one CUDA card.
 
-    python3 scripts/time_fused.py [--family fused|partials] [--src DIR] [--label NAME]
+    python3 scripts/time_fused.py [--family fused|partials|max] [--src DIR] [--label NAME]
                                   [--sweep 8,16,32,64] [--geometry-sweep]
                                   [--profile] [--out FILE]
 
@@ -34,6 +34,17 @@ whole and without the fold.
 (``segment_reduce`` over the partials) timed alone.  ``--geometry-sweep``
 (trees with ``partials_geometry`` only) times other launch geometries of
 the same kernels (columns and rows per thread, column units per slab).
+
+``--family max``: kernels 3-4 (the fused and the partials max) on
+``m4_kron16`` at k = 8, 128, 256, ``m10_ohne2`` at k = 8 and the hub-run
+matrix at k = 8, 128, 256, each with its entry point
+(``ops.hbp_spmm(combine="max")``; for the partials the combine timed
+alone too), its own bound (``chip_smoke.kernel_bytes``) and a SHA-256;
+then a 3-layer GraphSAGE-max forward (the ``chip_smoke.py`` graph phase's
+model and graph) under ``"fused"`` and ``"partials"``.  Its
+``--geometry-sweep`` (trees whose max kernels take a launch geometry)
+times other geometries of both: one column and one row a thread is the
+fused max as one thread per (chunk, g, c).
 """
 import argparse
 import dataclasses
@@ -50,7 +61,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import card_peaks, timed_ms  # noqa: E402
+from chip_smoke import GNN_DIMS, card_peaks, kernel_bytes, timed_ms  # noqa: E402
 
 # enough launches that a time covers this many ms of steady work
 WINDOW_MS = 100.0
@@ -96,6 +107,18 @@ CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128),
 PARTIALS_CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128), ("m4_kron16", 256),
                   ("m10_ohne2", 1), ("m10_ohne2", 8),
                   ("hub", 1), ("hub", 8), ("hub", 128), ("hub", 256))
+MAX_CASES = (("m4_kron16", 8), ("m4_kron16", 128), ("m4_kron16", 256), ("m10_ohne2", 8),
+             ("hub", 8), ("hub", 128), ("hub", 256))
+# (matrix, k) -> launch geometries (width, rows, slab) of the max kernels'
+# --geometry-sweep; (1, 1, min(k, 32)) is one thread per output element
+_WIDE = [(1, 1, 32), (4, 1, 8), (4, 1, 16)] + [(4, r, 32) for r in (1, 2, 4, 8)]
+MAX_GEOMETRIES = {
+    ("m4_kron16", 8): [(1, 1, 8), (4, 1, 1)] + [(4, r, 2) for r in (1, 2, 4, 8)],
+    ("m4_kron16", 128): _WIDE,
+    ("m4_kron16", 256): _WIDE,
+    ("hub", 8): [(1, 1, 8), (4, 1, 2), (4, 2, 2)],
+    ("hub", 128): _WIDE,
+}
 # (matrix, k) -> launch geometries (width, rows, slab) of --geometry-sweep
 GEOMETRIES = {
     ("m4_kron16", 1): [(1, r, 1) for r in (1, 2, 4, 8)],
@@ -107,11 +130,82 @@ GEOMETRIES = {
 }
 
 
+def max_family(args, staged, K, ops, ref, dev, g, emit, peak_bw) -> None:
+    """Kernels 3-4, their entry points and the GraphSAGE-max forward."""
+    kernels = (("hbp_spmm_fused_max", "fused"), ("hbp_spmm_partials_max", "partials"))
+    for i, (name, k) in enumerate(MAX_CASES):
+        _, dt = staged[name]
+        g.manual_seed(3000 + i)  # the same x in every tree
+        X = torch.randn(dt.shape[1], k, device=dev, generator=g)
+        for kname, strategy in kernels:
+            kern, plain = getattr(K, kname), getattr(K, kname + "_plain")
+            out = kern(dt, X)
+            row = {"family": "max", "kernel": kname, "matrix": name, "k": k,
+                   "exact": bool(torch.equal(out, plain(dt, X))), "sha256": sha256(out),
+                   "ms": steady_ms(lambda: kern(dt, X)),
+                   "entry_ms": steady_ms(lambda: ops.hbp_spmm(dt, X, strategy=strategy,
+                                                              combine="max")),
+                   "bound_ms": kernel_bytes(kname, dt, k) / peak_bw * 1e3}
+            if strategy == "partials":
+                row["combine_ms"] = steady_ms(lambda: ref.segment_max_sorted(
+                    out, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths))
+            else:
+                row.update(n_chunks=int(dt.chunk_dest.shape[0]),
+                           n_split=int(dt.split_run.shape[0]),
+                           chunk_buffer_bytes=dt.chunk_buffer_nbytes(k))
+            if args.profile:
+                row["kernel_device_us"] = device_us(lambda: kern(dt, X))
+                row["entry_device_us"] = device_us(
+                    lambda: ops.hbp_spmm(dt, X, strategy=strategy, combine="max"))
+            del out
+            emit(row)
+            sweep = MAX_GEOMETRIES.get((name, k), ()) if args.geometry_sweep else ()
+            for width, rows_, slab in sweep:
+                group = dt.data.shape[1]
+                if strategy == "fused":
+                    n_items = int(dt.chunk_dest.shape[0])
+                    y = torch.full((dt.n_rowgroups, group, k), float("-inf"), device=dev)
+                    launch = lambda: K._fused_max(dt, X, y, geometry=geo)  # noqa: E731
+                else:
+                    n_items = dt.n_tiles
+                    y = torch.empty((dt.n_tiles, group, k), device=dev)
+                    launch = lambda: K._partials_launch(  # noqa: E731
+                        "hbp_spmm_partials_max_launch", dt, X, y, k, geometry=geo)
+                geo = K._geometry(n_items, group, k, width, rows_, slab)
+                launch()
+                row = {"family": "max", "kernel": kname, "geometry": [width, rows_, slab],
+                       "matrix": name, "k": k, "sha256": sha256(y), "ms": steady_ms(launch)}
+                if args.profile:
+                    row["kernel_device_us"] = device_us(launch)
+                emit(row)
+                del y
+    # the chip_smoke.py graph phase's GraphSAGE-max forward, both strategies
+    import tempfile
+
+    from repro_torch.graph import GraphSAGE, plan_aggregator, rmat_graph
+    from repro_torch.serving import MatrixRegistry
+
+    A = rmat_graph(1 << 16, 79.345703125, seed=4)
+    feats = torch.randn(A.shape[0], GNN_DIMS[0], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    model = GraphSAGE(GNN_DIMS, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    with tempfile.TemporaryDirectory() as cache, torch.inference_mode():
+        for strategy in ("fused", "partials"):
+            reg = MatrixRegistry(device="cuda", cache_dir=cache, search=False, strategy=strategy)
+            agg = plan_aggregator(reg.admit(A, "A"), op="max")
+            out = model(agg, feats)
+            row = {"family": "max", "forward": "sage-max", "strategy": strategy,
+                   "sha256": sha256(out), "ms": steady_ms(lambda: model(agg, feats))}
+            if args.profile:
+                row["device_us"] = device_us(lambda: model(agg, feats), calls=10)
+            emit(row)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="change")
-    ap.add_argument("--family", choices=("fused", "partials"), default="fused")
+    ap.add_argument("--family", choices=("fused", "partials", "max"), default="fused")
     ap.add_argument("--sweep", default="")
     ap.add_argument("--geometry-sweep", action="store_true",
                     help="partials: time other launch geometries of the same kernels")
@@ -149,7 +243,7 @@ def main() -> None:
         "m4_kron16": (kron, ops.device_tiles(build_tiles(kron, tuned_partition_config(kron)), dev)),
         "m10_ohne2": (ohne, ops.device_tiles(build_tiles(ohne, PartitionConfig(lane=128)), dev)),
     }
-    if args.family == "partials":
+    if args.family in ("partials", "max"):
         hub = csr_from_coo(COOMatrix(*hub_coo(ops.RUN_CHUNK, 8)))
         staged["hub"] = (hub, ops.device_tiles(build_tiles(hub, PartitionConfig(**hub_config(8))),
                                                dev))
@@ -189,15 +283,14 @@ def main() -> None:
             entry = ops.hbp_spmv if k == 1 else ops.hbp_spmm
             A = csr_tensor(csr)
             T, group, _ = dt.data.shape
-            moved = (dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes + dt.shape[1] * k * 4
-                     + T * group * k * 4)
             row = {"family": "partials", "matrix": name, "k": k,
                    "ms": steady_ms(lambda: kern(dt, arg)),
                    "entry_ms": steady_ms(lambda: entry(dt, arg, strategy="partials")),
                    "combine_ms": steady_ms(lambda: ref.segment_sum_sorted(
                        view, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)),
                    "library_ms": steady_ms(lambda: A @ arg),
-                   "bound_ms": moved / peak_bw * 1e3, "max_abs_err": err, "sha256": digest}
+                   "bound_ms": kernel_bytes("hbp_spmm_partials", dt, k) / peak_bw * 1e3,
+                   "max_abs_err": err, "sha256": digest}
             if args.profile:
                 row["kernel_device_us"] = device_us(lambda: kern(dt, arg))
                 row["entry_device_us"] = device_us(lambda: entry(dt, arg, strategy="partials"))
@@ -210,7 +303,7 @@ def main() -> None:
                 out = torch.empty((T, group, k), dtype=torch.float32, device=dev)
 
                 def launch():
-                    K._partials_sum("hbp_spmm_partials_launch", dt, arg, out, k, geometry=geo)
+                    K._partials_launch("hbp_spmm_partials_launch", dt, arg, out, k, geometry=geo)
 
                 launch()
                 row = {"family": "partials", "geometry": [width, rows_, slab], "matrix": name,
@@ -219,6 +312,9 @@ def main() -> None:
                     row["kernel_device_us"] = device_us(launch)
                 emit(row)
                 del out
+
+    if args.family == "max":
+        max_family(args, staged, K, ops, ref, dev, g, emit, peak_bw)
 
     for i, (name, k) in enumerate(CASES if args.family == "fused" else ()):
         csr, dt = staged[name]
@@ -234,12 +330,9 @@ def main() -> None:
         entry_ms = steady_ms(lambda: entry(dt, arg, strategy="fused"))
         A = csr_tensor(csr)
         library_ms = steady_ms(lambda: A @ arg)
-        group = dt.data.shape[1]
-        moved = (dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes + dt.run_start.nbytes
-                 + dt.run_rowgroup.nbytes + dt.shape[1] * k * 4
-                 + dt.n_rowgroups * group * k * 4)
         row = {"matrix": name, "k": k, "ms": ms, "entry_ms": entry_ms, "max_abs_err": err,
-               "bound_ms": moved / peak_bw * 1e3, "library_ms": library_ms, "sha256": digest}
+               "bound_ms": kernel_bytes("hbp_spmm_fused", dt, k) / peak_bw * 1e3,
+               "library_ms": library_ms, "sha256": digest}
         if args.profile:
             row["kernel_device_us"] = device_us(lambda: kern(dt, arg))
             row["entry_device_us"] = device_us(lambda: entry(dt, arg, strategy="fused"))

@@ -40,12 +40,12 @@ _SIGNATURES = {
     "hbp_spmv": {
         "hbp_spmv_fused_launch": [_ptr] * 11 + [_int] * 6 + [_ptr],
         "hbp_spmm_fused_launch": [_ptr] * 11 + [_int] * 7 + [_ptr],
-        "hbp_spmm_fused_max_launch": [_ptr] * 7 + [_int] * 6 + [_ptr],
+        "hbp_spmm_fused_max_launch": [_ptr] * 11 + [_int] * 13 + [_ptr],
     },
     "hbp_partials": {
         "hbp_spmv_partials_launch": [_ptr] * 5 + [_int] * 11 + [_ptr],
         "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
-        "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
+        "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
     },
 }
 

@@ -1,17 +1,19 @@
-// The lane chain shared by the HBP kernels for Hopper (sm_90a).
+// The lane chains shared by the HBP kernels for Hopper (sm_90a).
 //
-// The kernels of hbp_spmv.cu and the max kernel of hbp_partials.cu compute
-// their outputs with tile_chain: one thread folds the slots of tiles
-// [t0, t1), tiles in stream order and lanes in order, into one accumulator
-// under a monoid (the partials sum kernels run the SumOp chain of one tile
-// for several rows and columns of a thread at once, hbp_partials.cu):
+// Every output element is a fold, under a monoid, of the slots of a range
+// of tiles [t0, t1), tiles in stream order and lanes in order:
 //
 //   SumOp: acc = __fmaf_rn(d, x, acc), starting from 0;
-//   MaxOp: acc = fmaxf(acc, d != 0 ? __fmul_rn(d, x) : -inf), from -inf.
+//   MaxOp: acc = max_nan(acc, d != 0 ? __fmul_rn(d, x) : -inf), from -inf.
 //
 // Under MaxOp a slot is live iff its stored value is nonzero, so padded
 // slots (and explicitly stored zeros) are masked to the identity instead
-// of contributing 0 * x = 0, which would beat every all-negative row.
+// of contributing 0 * x = 0, which would beat every all-negative row; the
+// mask comes first, so a masked slot is the identity whatever x holds
+// (the JAX package's jnp.where(d != 0, d * x, -inf)).  A NaN product of a
+// live slot, or a NaN accumulator, gives NaN, as jnp.max does: max_nan is
+// PTX max.NaN.f32, where fmaxf would return the other operand and drop
+// the NaN.  On operands that are not NaN the two give the same bits.
 // Slot (t, g, l) reads x row colblock[t] * col_block + cols[t, g, l] of
 // the row-major x [n_x, k], column c.
 //
@@ -19,10 +21,13 @@
 // common powers of two get an unrolled specialisation (LANE > 0), any
 // other width the generic loop (LANE = 0).  Both run the identical chain.
 //
-// vec_sum_chain is the SumOp chain of the fused sum kernels for LANE > 0:
-// the same multiply-adds in the same order, so the same bits, with each
-// tile row read as 16-byte vectors and the next step's row loaded while
-// this step's x gathers are in flight.
+// scalar_sum_chain and vec_sum_chain are the SumOp chains of the fused sum
+// kernels (hbp_spmv.cu), one output element a thread: the same
+// multiply-adds in the same order, so the same bits; vec_sum_chain (LANE
+// > 0) reads each tile row as 16-byte vectors and loads the next step's
+// row while this step's x gathers are in flight.  The partials kernels
+// and the fused max give a thread several rows and columns of a tile
+// range instead (hbp_rows.cuh, hbp_partials.cu).
 
 #pragma once
 
@@ -35,27 +40,44 @@ namespace hbp {
 
 constexpr int kThreads = 256;
 
+// max(a, b), NaN once either is NaN (max.NaN.f32, sm_80 and later).
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else  // the host compiler's view of a device function
+  return a != a || b != b ? a + b : fmaxf(a, b);
+#endif
+}
+
+// step folds one slot into an accumulator; combine folds two partial
+// results of one output (the split runs' fold).  kMasked: a slot whose
+// stored value is 0 is the identity, so its x gather can be skipped.
 struct SumOp {
+  static constexpr bool kMasked = false;
   static __device__ __forceinline__ float identity() { return 0.0f; }
   static __device__ __forceinline__ float step(float acc, float d, float xv) {
     return __fmaf_rn(d, xv, acc);
   }
+  static __device__ __forceinline__ float combine(float a, float b) { return __fadd_rn(a, b); }
 };
 
 struct MaxOp {
+  static constexpr bool kMasked = true;
   static __device__ __forceinline__ float identity() { return -CUDART_INF_F; }
   static __device__ __forceinline__ float step(float acc, float d, float xv) {
-    return fmaxf(acc, d != 0.0f ? __fmul_rn(d, xv) : -CUDART_INF_F);
+    return max_nan(acc, d != 0.0f ? __fmul_rn(d, xv) : -CUDART_INF_F);
   }
+  static __device__ __forceinline__ float combine(float a, float b) { return max_nan(a, b); }
 };
 
-template <int LANE, class Op>
-__device__ __forceinline__ float tile_chain(
+// The SumOp chain of tiles [t0, t1) for row g, column c, any lane count.
+__device__ __forceinline__ float scalar_sum_chain(
     const float* __restrict__ data, const int* __restrict__ cols,
     const int* __restrict__ colblock, const float* __restrict__ x,
-    int t0, int t1, int g, int group, int lane_rt, int col_block, int k, int c) {
-  const int lane = LANE > 0 ? LANE : lane_rt;
-  float acc = Op::identity();
+    int t0, int t1, int g, int group, int lane, int col_block, int k, int c) {
+  float acc = 0.0f;
   for (int t = t0; t < t1; ++t) {
     const int64_t slot = (static_cast<int64_t>(t) * group + g) * lane;
     const float* __restrict__ d = data + slot;
@@ -65,7 +87,7 @@ __device__ __forceinline__ float tile_chain(
 #pragma unroll
     for (int l = 0; l < lane; ++l) {
       const float xv = __ldg(xs + static_cast<int64_t>(__ldg(cl + l)) * k);
-      acc = Op::step(acc, __ldg(d + l), xv);
+      acc = __fmaf_rn(__ldg(d + l), xv, acc);
     }
   }
   return acc;

@@ -20,81 +20,47 @@
 // k = 128 on m4_kron16 the buffer is 731 MB of the 856.  It is the price
 // of the split, which the fused kernels keep out of memory.
 //
-// Design of the sum kernels (SpMV and SpMM): a tile's x rows gathered by
-// the warps of one block.
-// * A thread owns `width` columns of `rows` consecutive rows of one tile:
-//   width 4 (one float4 of each x row it gathers, float4 stores) when k is
-//   a multiple of 4 and x is 16-byte aligned, else width 1, the scalar-
-//   column path.  The threads of a tile cover `slab` column units of all
-//   its rows; slabs of wider k are the grid's second dimension.  The
-//   wrapper picks the geometry (hbp_spmv.py partials_geometry): a tile
-//   gets up to 64 threads, all in one block.  At k = 128 that is two warps
-//   of 32 column quads, each warp 4 of the tile's 8 rows; at k <= 32 one
-//   row per thread (k = 1: four tiles per warp).  On m4_kron16 (H100 SXM,
-//   700 W; scripts/time_fused.py --geometry-sweep, PERF.md) two warps per
-//   tile beat one (8 rows a thread) and four by 7-17 %, and 4 columns a
-//   thread beat 8.  So a tile's x rows are gathered on one SM: the slots
-//   that repeat a row (most are padded slots, column 0) hit L1 rather
-//   than L2, and a gather moves a whole 16-byte column quad.
+// Design of the sum kernels (kernels 5-6, SpMV and SpMM): a
+// tile's x rows gathered by the warps of one block, in the geometry of the
+// tile-row kernel (hbp_rows.cuh), whose checks and dispatch they share.
+// * A thread owns W columns (W = 4: one float4 of each x row it gathers,
+//   float4 stores; W = 1: the scalar-column path) of R consecutive rows of
+//   one tile.  The wrapper picks the geometry (hbp_spmv.py
+//   partials_geometry): a tile gets up to 64 threads, all in one block.
+//   At k = 128 that is two warps of 32 column quads, each warp 4 of the
+//   tile's 8 rows; at k <= 32 one row per thread (k = 1: four tiles per
+//   warp).  On m4_kron16 (H100 SXM, 700 W; scripts/time_fused.py
+//   --geometry-sweep, PERF.md) two warps per tile beat one (8 rows a
+//   thread) and four by 7-17 %, and 4 columns a thread beat 8.  So a
+//   tile's x rows are gathered on one SM: the slots that repeat a row
+//   (most are padded slots, column 0) hit L1 rather than L2.
 // * Tile rows are read as 16-byte vectors (int4 cols, float4 data) for
-//   lanes 8..128; the threads of a row block read the same addresses, so
-//   a load is a broadcast, not one fetch per thread.  Lane 12 and other
-//   widths read scalars.
+//   lanes 8..128, broadcast to a row block's threads; other lane counts
+//   read scalars.
 // * Each accumulator is one __fmaf_rn chain over its row's lanes in
-//   order, from 0.0f: a thread's rows and columns are independent chains,
-//   so neither the geometry nor the path changes a bit, SpMV is bitwise
-//   column c of the SpMM whenever X[:, c] = x, and padded slots stay in
-//   the chain (0 * x[col 0], as on the TPU).
+//   order, from 0.0f: neither the geometry nor the path changes a bit,
+//   SpMV is bitwise column c of the SpMM whenever X[:, c] = x, and padded
+//   slots stay in the chain (0 * x[col 0], as on the TPU).
 // * The partials are written with streaming stores (__stcs), so the
 //   buffer does not evict x from the 50 MB L2 (plain stores: 0.62 ms
 //   against 0.47 at k = 128 on m4_kron16, PERF.md).
 // * Offsets into x and the buffer are 64-bit (T * group * k * 4 passes
 //   2^31 bytes at k = 256 on m4_kron16); per-thread index math is 32-bit.
 //
-// The max kernel (kernel 4) keeps the one-thread-per-(t, g, c) design of
-// its first port, with the chain of hbp_chain.cuh.
+// The max kernel (kernel 4) is the tile-row kernel of hbp_rows.cuh, one
+// item per tile, under MaxOp: the same geometry, -inf for the chains'
+// start, max_nan for their step, and each masked slot's gather skipped
+// where a warp's rows are uniform.  Each max output is exact.  Kernels
+// 5-6 on that body gave the same bits and up to 2 % more device time on
+// m4_kron16 (H100 SXM, 700 W; scripts/time_fused.py, PERF.md), so the sum
+// keeps its own.
 
-#include "hbp_chain.cuh"
+#include "hbp_rows.cuh"
 
 namespace {
 
 using hbp::kStep;  // lanes per step of a tile row: two int4 and two float4
 using hbp::kThreads;
-
-// The thread's W columns of one x row: W = 1, or W = 4 read as a float4.
-template <int W>
-__device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[W]) {
-  static_assert(W == 1 || W == 4, "a thread owns 1 or 4 columns");
-  if constexpr (W == 1) {
-    v[0] = __ldg(p);
-  } else {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[W]) {
-  if constexpr (W == 1) {
-    __stcs(p, v[0]);
-  } else {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-}
-
-// One slot of one row: acc[w] = fma(d, x[col, c0 + w], acc[w]), xs
-// pointing at column c0 of the tile's x segment.
-template <int W>
-__device__ __forceinline__ void slot(float (&acc)[W], float d, const float* __restrict__ xs,
-                                     int col, int64_t k) {
-  float v[W];
-  load_cols<W>(xs + col * k, v);
-#pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = __fmaf_rn(d, v[w], acc[w]);
-}
 
 // Thread (blockIdx, threadIdx) -> tile t, rows g0 .. g0 + R - 1, columns
 // c0 .. c0 + W - 1: a block holds blockDim.x / tile_threads tiles, and a
@@ -131,14 +97,14 @@ __global__ void __launch_bounds__(kThreads) hbp_partials_sum_kernel(
         const float4* dp = reinterpret_cast<const float4*>(data + at);
         const int4 ca = __ldg(cp), cb = __ldg(cp + 1);
         const float4 da = __ldg(dp), db = __ldg(dp + 1);
-        slot<W>(acc[r], da.x, xs, ca.x, kk);
-        slot<W>(acc[r], da.y, xs, ca.y, kk);
-        slot<W>(acc[r], da.z, xs, ca.z, kk);
-        slot<W>(acc[r], da.w, xs, ca.w, kk);
-        slot<W>(acc[r], db.x, xs, cb.x, kk);
-        slot<W>(acc[r], db.y, xs, cb.y, kk);
-        slot<W>(acc[r], db.z, xs, cb.z, kk);
-        slot<W>(acc[r], db.w, xs, cb.w, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], da.x, xs, ca.x, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], da.y, xs, ca.y, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], da.z, xs, ca.z, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], da.w, xs, ca.w, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], db.x, xs, cb.x, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], db.y, xs, cb.y, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], db.z, xs, cb.z, kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], db.w, xs, cb.w, kk);
       }
     }
   } else {
@@ -146,12 +112,12 @@ __global__ void __launch_bounds__(kThreads) hbp_partials_sum_kernel(
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int64_t at = (row0 + r) * lane_rt + l;
-        slot<W>(acc[r], __ldg(data + at), xs, __ldg(cols + at), kk);
+        hbp::slot<W, hbp::SumOp, false>(acc[r], __ldg(data + at), xs, __ldg(cols + at), kk);
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) store_cols<W>(partial + (row0 + r) * kk + c0, acc[r]);
+  for (int r = 0; r < R; ++r) hbp::store_cols<W>(partial + (row0 + r) * kk + c0, acc[r]);
 }
 
 template <int W, int R>
@@ -168,83 +134,24 @@ cudaError_t launch_sum_wr(const float* data, const int* cols, const int* colbloc
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // The geometry (width, rows, slab, block, grid) comes from the caller;
-// this checks that it is one the kernel can run safely.
-int launch_sum(const float* data, const int* cols, const int* colblock, const float* x,
-               float* partial, int n_tiles, int group, int lane, int col_block, int k,
-               int width, int rows, int slab, int block, int grid_x, int grid_y,
-               int device, void* stream) {
-  if (n_tiles < 0 || group <= 0 || lane <= 0 || col_block <= 0 || k <= 0 ||
-      rows <= 0 || group % rows != 0 || slab <= 0 || block <= 0 ||
-      block > kThreads || block % (slab * (group / rows)) != 0 || grid_x < 0 ||
-      grid_y <= 0 || grid_y > 65535 || !aligned16(data) || !aligned16(cols))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (width > 1 && (k % width != 0 || !aligned16(x) || !aligned16(partial)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the grid must cover every tile and every column
+// hbp::prepare_rows checks it.
+cudaError_t launch_sum(const float* data, const int* cols, const int* colblock,
+                       const float* x, float* partial, int n_tiles, int group, int lane,
+                       int col_block, int k, int width, int rows, int slab, int block,
+                       int grid_x, int grid_y, int device, void* stream) {
+  const cudaError_t ready =
+      hbp::prepare_rows(data, cols, x, partial, nullptr, n_tiles, group, lane, col_block, k,
+                        width, rows, slab, block, grid_x, grid_y, device);
+  if (ready != cudaSuccess || n_tiles == 0) return ready;
   const int tile_threads = slab * (group / rows);
-  if (static_cast<int64_t>(grid_x) * (block / tile_threads) < n_tiles ||
-      static_cast<int64_t>(grid_y) * slab * width < k)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t dev = cudaSetDevice(device);
-  if (dev != cudaSuccess) return static_cast<int>(dev);
-  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
   const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HBP_WR(W, R)                                                                 \
   launch_sum_wr<W, R>(data, cols, colblock, x, partial, n_tiles, group, lane,       \
                       col_block, k, slab, tile_threads, grid, block, s)
-  switch (width * 16 + rows) {
-    case 0x11: return static_cast<int>(HBP_WR(1, 1));
-    case 0x12: return static_cast<int>(HBP_WR(1, 2));
-    case 0x14: return static_cast<int>(HBP_WR(1, 4));
-    case 0x18: return static_cast<int>(HBP_WR(1, 8));
-    case 0x41: return static_cast<int>(HBP_WR(4, 1));
-    case 0x42: return static_cast<int>(HBP_WR(4, 2));
-    case 0x44: return static_cast<int>(HBP_WR(4, 4));
-    case 0x48: return static_cast<int>(HBP_WR(4, 8));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  HBP_DISPATCH_WR(width, rows, HBP_WR)
 #undef HBP_WR
-}
-
-// Kernel 4: one thread per output element (t, g, c), c fastest.
-template <int LANE>
-__global__ void __launch_bounds__(kThreads) hbp_partials_max_kernel(
-    const float* __restrict__ data, const int* __restrict__ cols,
-    const int* __restrict__ colblock, const float* __restrict__ x,
-    float* __restrict__ partial, int64_t n_out, int group, int lane, int col_block,
-    int k) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_out) return;
-  const int64_t per_tile = static_cast<int64_t>(group) * k;
-  const int t = static_cast<int>(e / per_tile);
-  const int rem = static_cast<int>(e - t * per_tile);
-  const int g = rem / k;
-  const int c = rem - g * k;
-  partial[e] = hbp::tile_chain<LANE, hbp::MaxOp>(data, cols, colblock, x, t, t + 1, g,
-                                                 group, lane, col_block, k, c);
-}
-
-int launch_max(const float* data, const int* cols, const int* colblock, const float* x,
-               float* partial, int n_tiles, int group, int lane, int col_block, int k,
-               int device, void* stream) {
-  if (n_tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_out = static_cast<int64_t>(n_tiles) * group * k;
-  dim3 grid;
-  const cudaError_t ready =
-      hbp::prepare_launch(n_out, group, lane, col_block, k, device, &grid);
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HBP_LAUNCH(L)                                                         \
-  hbp_partials_max_kernel<L><<<grid, kThreads, 0, s>>>(                       \
-      data, cols, colblock, x, partial, n_out, group, lane, col_block, k)
-  HBP_DISPATCH_LANE(lane, HBP_LAUNCH)
-#undef HBP_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -258,8 +165,9 @@ int hbp_spmv_partials_launch(const float* data, const int* cols, const int* colb
                              int lane, int col_block, int width, int rows, int slab,
                              int block, int grid_x, int grid_y, int device,
                              void* stream) {
-  return launch_sum(data, cols, colblock, x, partial, n_tiles, group, lane, col_block,
-                    1, width, rows, slab, block, grid_x, grid_y, device, stream);
+  return static_cast<int>(launch_sum(data, cols, colblock, x, partial, n_tiles, group,
+                                     lane, col_block, 1, width, rows, slab, block, grid_x,
+                                     grid_y, device, stream));
 }
 
 // partial: f32[n_tiles, group, k]; x: f32[n_x, k]; the launch geometry of
@@ -269,17 +177,21 @@ int hbp_spmm_partials_launch(const float* data, const int* cols, const int* colb
                              int lane, int col_block, int k, int width, int rows,
                              int slab, int block, int grid_x, int grid_y, int device,
                              void* stream) {
-  return launch_sum(data, cols, colblock, x, partial, n_tiles, group, lane, col_block,
-                    k, width, rows, slab, block, grid_x, grid_y, device, stream);
+  return static_cast<int>(launch_sum(data, cols, colblock, x, partial, n_tiles, group,
+                                     lane, col_block, k, width, rows, slab, block, grid_x,
+                                     grid_y, device, stream));
 }
 
-// partial: f32[n_tiles, group, k], -inf where a tile row has no live slot.
+// partial: f32[n_tiles, group, k], -inf where a tile row has no live slot;
+// the geometry as for the sum.
 int hbp_spmm_partials_max_launch(const float* data, const int* cols,
                                  const int* colblock, const float* x, float* partial,
-                                 int n_tiles, int group, int lane, int col_block,
-                                 int k, int device, void* stream) {
-  return launch_max(data, cols, colblock, x, partial, n_tiles, group, lane, col_block,
-                    k, device, stream);
+                                 int n_tiles, int group, int lane, int col_block, int k,
+                                 int width, int rows, int slab, int block, int grid_x,
+                                 int grid_y, int device, void* stream) {
+  return static_cast<int>(hbp::launch_rows<hbp::MaxOp, false>(
+      data, cols, colblock, nullptr, nullptr, x, partial, nullptr, n_tiles, group, lane,
+      col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream));
 }
 
 }  // extern "C"

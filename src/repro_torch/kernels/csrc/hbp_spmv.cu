@@ -10,7 +10,7 @@
 //                 of data[t, g, l] * x[colblock[t] * col_block + cols[t, g, l], c]
 // with x row-major [n_x, k] (k = 1 for SpMV) and y row-major
 // [n_rowgroups, group, k]; the max monoid masks slots whose stored value
-// is 0 (hbp_chain.cuh).
+// is 0 and carries NaN (hbp_chain.cuh).
 //
 // Design.
 // * Runs replace the sequential grid.  The TPU kernel accumulates into an
@@ -20,26 +20,33 @@
 //   tiles are never written: the caller fills the output with the
 //   monoid's identity (0 for the sum, -inf for the max, which the entry
 //   point maps to 0 after assembly).  No atomic touches a value.
-// * Sum (SpMV and SpMM): chunks bound the serial walk.  A power-law hub
-//   row group owns a run of thousands of tiles, and one thread walking it
-//   set the whole launch's time.  The staging step (ops.device_tiles) cuts
-//   every run into consecutive chunks of at most RUN_CHUNK tiles, so no
-//   thread walks more, and the sum runs in two kernels on the caller's
-//   stream:
-//     A. hbp_chunk_kernel: one thread per (chunk, g, c) folds its chunk's
-//        tiles into one chain; a run of one chunk writes y directly, a
-//        chunk of a split run writes its row of the chunk buffer
-//        partial[n_split_chunks, group, k] (allocated by the caller);
+// * Chunks bound the serial walk.  A power-law hub row group owns a run
+//   of thousands of tiles, and one thread walking it set the whole
+//   launch's time.  The staging step (ops.device_tiles) cuts every run
+//   into consecutive chunks of at most RUN_CHUNK tiles, so no thread walks
+//   more, and each launcher runs two kernels on the caller's stream:
+//     A. the chunk chains: each chunk's tiles folded into its outputs; a
+//        run of one chunk writes y directly, a chunk of a split run writes
+//        its row of the chunk buffer partial[n_split_chunks, group, k]
+//        (allocated by the caller, uninitialised);
 //     B. hbp_fold_kernel: one thread per (split run, g, c) left-folds the
-//        run's chunk partials in chunk order with __fadd_rn into y.
+//        run's chunk partials in chunk order into y (__fadd_rn, or the
+//        NaN-carrying max).
+//   A is hbp_chunk_kernel for the sum (one thread per (chunk, g, c)) and
+//   the tile-row kernel of hbp_rows.cuh for the max (kernel 3): a
+//   chunk's threads are (row block, column unit), R rows and 4 columns
+//   (a float4 of each x row) or 1 a thread, in the launch geometry the
+//   wrapper picks (hbp_spmv.py partials_geometry), so a chunk's x rows are
+//   gathered on one SM (and masked slots skip their gather where a warp's
+//   threads share their rows: k >= 128, or k >= 32 on scalar columns).
 //   Two launches rather than one with per-run arrival counters, which
 //   would need a fence and a reset per run and a counter array shared by
 //   every launch on the tiles.  The fold is cheap: on m4_kron16 (RUN_CHUNK
 //   32, 1,216 split runs) it adds 0.008, 0.012 and 0.022 ms to chains of
 //   0.048, 0.083 and 0.965 ms at k = 1, 8 and 128 (H100 SXM, 700 W;
 //   scripts/time_fused.py, PERF.md).
-// * One accumulation order for every width.  The chunk boundaries depend
-//   on the tiles alone, each chunk is one __fmaf_rn chain over its tiles
+// * One accumulation order for every width (sum).  The chunk boundaries
+//   depend on the tiles alone, each chunk is one __fmaf_rn chain over its tiles
 //   in stream order and lanes in order, and the fold order is the chunk
 //   order; SpMV is the same template at k = 1.  So SpMV(x) is bitwise
 //   column c of SpMM(X) whenever X[:, c] = x, at any k and any zero
@@ -48,14 +55,14 @@
 // * Loads.  For lanes 8..128 each tile row is read as 16-byte vectors
 //   (int4 cols, float4 data) and the next step's row is loaded while this
 //   step's x gathers are in flight (vec_sum_chain); other lane counts run
-//   the scalar chain (tile_chain).  Both are compile-time specialisations.
-// * Output elements are flattened as (chunk, g, c), c fastest: for small k
+//   the scalar chain (scalar_sum_chain).  Both are compile-time
+//   specialisations.
+// * Sum output elements are flattened as (chunk, g, c), c fastest: for small k
 //   several chunks share one block of threads, for wide k one chunk spans
 //   several blocks, and neighbouring threads read neighbouring columns of
 //   an x row.
-// * Max (kernel 3) keeps the serial-run kernel: one thread per (run, g, c)
-//   walks its whole run (hbp_fused_kernel below); the max is exact in any
-//   order.  Its chunked redesign is queued.
+// * Max: exact in any order, so the chunks and the fold give the bits of
+//   one max over the run; a NaN product of a live slot reaches y.
 //
 // Bound on this card: bytes.  Each stored slot costs 8 bytes of tile
 // stream (value + column id) for 2 operations per column of x; even at
@@ -67,7 +74,7 @@
 // kernels' per-tile buffer.  Staging x segments in shared memory and
 // reusing tile rows across columns are left to measured follow-up work.
 
-#include "hbp_chain.cuh"
+#include "hbp_rows.cuh"
 
 namespace {
 
@@ -96,8 +103,8 @@ __global__ void __launch_bounds__(kThreads) hbp_chunk_kernel(
     acc = hbp::vec_sum_chain<LANE>(data, cols, colblock, x, t0, t1, g, group,
                                    col_block, k, c);
   } else {
-    acc = hbp::tile_chain<0, hbp::SumOp>(data, cols, colblock, x, t0, t1, g, group,
-                                         lane, col_block, k, c);
+    acc = hbp::scalar_sum_chain(data, cols, colblock, x, t0, t1, g, group, lane,
+                                col_block, k, c);
   }
   const int dest = __ldg(chunk_dest + i);
   float* out = dest >= 0 ? y + static_cast<int64_t>(dest) * per_chunk
@@ -105,10 +112,10 @@ __global__ void __launch_bounds__(kThreads) hbp_chunk_kernel(
   out[rem] = acc;
 }
 
-// Phase B of the sum: y[rg, g, c] of each split run is the left fold of
-// its chunk partials in chunk order.  The run's chunk-buffer rows are
+// Phase B: y[rg, g, c] of each split run is the left fold under Op of its
+// chunk partials in chunk order.  The run's chunk-buffer rows are
 // consecutive, from ~chunk_dest[first chunk].
-template <bool K1>
+template <bool K1, class Op>
 __global__ void __launch_bounds__(kThreads) hbp_fold_kernel(
     const int* __restrict__ run_chunk, const int* __restrict__ split_run,
     const int* __restrict__ chunk_dest, const int* __restrict__ run_rowgroup,
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) hbp_fold_kernel(
       partial + static_cast<int64_t>(~__ldg(chunk_dest + c0)) * per_run + rem;
   float acc = __ldg(p);
 #pragma unroll 8
-  for (int j = 1; j < n; ++j) acc = __fadd_rn(acc, __ldg(p + j * per_run));
+  for (int j = 1; j < n; ++j) acc = Op::combine(acc, __ldg(p + j * per_run));
   y[static_cast<int64_t>(__ldg(run_rowgroup + r)) * per_run + rem] = acc;
 }
 
@@ -156,53 +163,8 @@ int launch_sum(const float* data, const int* cols, const int* colblock,
 #undef HBP_LAUNCH
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
-  hbp_fold_kernel<K1><<<fold_grid, kThreads, 0, s>>>(
+  hbp_fold_kernel<K1, hbp::SumOp><<<fold_grid, kThreads, 0, s>>>(
       run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The serial-run kernel of the max monoid: one thread per (run, g, c)
-// walks its whole run.
-template <int LANE, bool K1, class Op>
-__global__ void __launch_bounds__(kThreads) hbp_fused_kernel(
-    const float* __restrict__ data, const int* __restrict__ cols,
-    const int* __restrict__ colblock, const int* __restrict__ run_start,
-    const int* __restrict__ run_rowgroup, const float* __restrict__ x,
-    float* __restrict__ y, int64_t n_out, int group, int lane, int col_block,
-    int k_rt) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_out) return;
-  const int k = K1 ? 1 : k_rt;
-  const int64_t per_run = static_cast<int64_t>(group) * k;
-  const int64_t r = e / per_run;
-  const int rem = static_cast<int>(e - r * per_run);
-  const int g = rem / k;
-  const int c = rem - g * k;
-  const float acc = hbp::tile_chain<LANE, Op>(
-      data, cols, colblock, x, __ldg(run_start + r), __ldg(run_start + r + 1), g,
-      group, lane, col_block, k, c);
-  y[(static_cast<int64_t>(__ldg(run_rowgroup + r)) * group + g) * k + c] = acc;
-}
-
-template <bool K1, class Op>
-int launch(const float* data, const int* cols, const int* colblock,
-           const int* run_start, const int* run_rowgroup, const float* x,
-           float* y, int n_runs, int group, int lane, int col_block, int k,
-           int device, void* stream) {
-  if (n_runs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_out = static_cast<int64_t>(n_runs) * group * k;
-  dim3 grid;
-  const cudaError_t ready =
-      hbp::prepare_launch(n_out, group, lane, col_block, k, device, &grid);
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HBP_LAUNCH(L)                                                          \
-  hbp_fused_kernel<L, K1, Op><<<grid, kThreads, 0, s>>>(                       \
-      data, cols, colblock, run_start, run_rowgroup, x, y, n_out, group, lane, \
-      col_block, k)
-  HBP_DISPATCH_LANE(lane, HBP_LAUNCH)
-#undef HBP_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,15 +198,31 @@ int hbp_spmm_fused_launch(const float* data, const int* cols, const int* colbloc
                            group, lane, col_block, k, device, stream);
 }
 
-// y: f32[n_rowgroups, group, k], filled with -inf by the caller; x: f32[n_x, k].
-int hbp_spmm_fused_max_launch(const float* data, const int* cols,
-                              const int* colblock, const int* run_start,
-                              const int* run_rowgroup, const float* x, float* y,
-                              int n_runs, int group, int lane, int col_block, int k,
-                              int device, void* stream) {
-  return launch<false, hbp::MaxOp>(data, cols, colblock, run_start, run_rowgroup, x,
-                                   y, n_runs, group, lane, col_block, k, device,
-                                   stream);
+// y: f32[n_rowgroups, group, k], filled with -inf by the caller; x: f32[n_x, k];
+// partial: f32[n_split_chunks, group, k], uninitialised; the launch geometry
+// of partials_geometry (hbp_spmv.py) over the n_chunks chunks.
+int hbp_spmm_fused_max_launch(const float* data, const int* cols, const int* colblock,
+                              const int* chunk_start, const int* chunk_dest,
+                              const int* run_chunk, const int* split_run,
+                              const int* run_rowgroup, const float* x, float* partial,
+                              float* y, int n_chunks, int n_split, int group, int lane,
+                              int col_block, int k, int width, int rows, int slab,
+                              int block, int grid_x, int grid_y, int device,
+                              void* stream) {
+  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_fold = static_cast<int64_t>(n_split) * group * k;
+  dim3 fold_grid;
+  cudaError_t err = hbp::grid_for(n_fold, &fold_grid);
+  if (err == cudaSuccess)
+    err = hbp::launch_rows<hbp::MaxOp, true>(
+        data, cols, colblock, chunk_start, chunk_dest, x, partial, y, n_chunks, group, lane,
+        col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream);
+  if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
+  hbp_fold_kernel<false, hbp::MaxOp><<<fold_grid, kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

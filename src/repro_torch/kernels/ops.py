@@ -74,7 +74,7 @@ K_CHUNK = 128
 # entries written under either stay valid; the two give the same bits.
 K_TILINGS = ("grid", "loop")
 
-# Most tiles one thread of the fused sum kernels walks: device_tiles cuts
+# Most tiles one thread of the fused kernels walks: device_tiles cuts
 # every row group's run into chunks of at most this many tiles, and runs
 # of more than one chunk are folded after the chunk chains (csrc/hbp_spmv.cu).
 # Chosen on the card from 8, 16, 32 and 64 on m4_kron16 (PERF.md).
@@ -102,7 +102,7 @@ class DeviceTiles:
     no run and come out 0 (the caller's zero-filled output), which takes
     the place of the JAX package's ``visited`` mask.
 
-    The chunk index the fused sum kernels walk cuts each run into
+    The chunk index the fused kernels walk cuts each run into
     consecutive chunks of at most :data:`RUN_CHUNK` tiles, chunk ``i``
     being tiles ``[chunk_start[i], chunk_start[i + 1])`` and run ``r``
     chunks ``[run_chunk[r], run_chunk[r + 1])``.  A chunk of a one-chunk
@@ -151,7 +151,7 @@ class DeviceTiles:
 
     @property
     def chunk_index_nbytes(self) -> int:
-        """Bytes of the chunk index the fused sum kernels read."""
+        """Bytes of the chunk index the fused kernels read."""
         return int(sum(t.nbytes for t in (
             self.chunk_start, self.run_chunk, self.chunk_dest, self.split_run)))
 
@@ -278,20 +278,18 @@ def stream_passes(k: int, strategy: str, k_tiling: str) -> int:
     return 1
 
 
-def modeled_launch_bytes(
-    dt: DeviceTiles, k: int, strategy: str, k_tiling: str, combine: str = "sum"
-) -> int:
+def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) -> int:
     """Modeled device-memory bytes one SpMM call moves (the bandwidth ledger).
 
     The tile stream (data f32 + cols i32 + the per-tile column block and
     the run index) is paid once per stream pass; each stored slot gathers
     one f32 of x per RHS column; the output block is written once.  Under
     ``"partials"`` the per-tile partials buffer (``T * group * k`` f32) is
-    written by the kernel and read back by the combine.  The fused sum
-    kernels read the chunk index once per pass, and write the chunk buffer
-    of the split runs (``n_split_chunks * group * k`` f32) and read it back
-    once.  A model, not a measurement: it assumes no cache reuse of the
-    gathers.
+    written by the kernel and read back by the combine.  The fused
+    kernels (sum and max alike) read the chunk index once per pass, and
+    write the chunk buffer of the split runs (``n_split_chunks * group *
+    k`` f32) and read it back once.  A model, not a measurement: it
+    assumes no cache reuse of the gathers.
     """
     passes = stream_passes(k, strategy, k_tiling)
     stream = dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes
@@ -303,7 +301,7 @@ def modeled_launch_bytes(
     extra = 0
     if strategy == "partials":
         extra = 2 * dt.n_tiles * group * k * 4
-    elif strategy == "fused" and combine == "sum":
+    elif strategy == "fused":
         extra = passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
     return int(passes * stream + gathers + out + extra)
 
@@ -319,7 +317,7 @@ def _record_launch(
     ).inc()
     obs.counter("kernels.traversals").inc(stream_passes(k, strategy, k_tiling))
     obs.counter("kernels.bytes_modeled").inc(
-        modeled_launch_bytes(dt, k, strategy, k_tiling, combine))
+        modeled_launch_bytes(dt, k, strategy, k_tiling))
     obs.counter("kernels.k_tiling", choice=k_tiling).inc()
     obs.histogram("kernels.launch_k").observe(k)
 

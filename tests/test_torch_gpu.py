@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo, csr_from_dense
 from repro_torch.core.matrices import banded_fem, circuit, rmat
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.hbp_spmv import (
     hbp_spmm_fused,
     hbp_spmm_fused_max,
@@ -312,3 +312,114 @@ def test_partials_keep_padded_slots_in_the_chain(cuda, lane):
         if k == 1:
             p = hbp_spmv_partials(dt, X[:, 0].contiguous())
             assert bool(torch.all(torch.isnan(p[padding])))
+
+
+# --- the max kernels (3-4) on the tile-row geometry, and NaN -----------------
+
+
+def _same_bits(y, y_plain, what=""):
+    """NaN in the same places, every other element bitwise equal."""
+    nan = torch.isnan(y_plain)
+    assert torch.equal(torch.isnan(y), nan), what
+    assert torch.equal(y[~nan].view(torch.int32), y_plain[~nan].view(torch.int32)), what
+
+
+@pytest.mark.parametrize("lane", [8, 16, 32, 64, 128, 12])
+def test_max_kernels_equal_plain_on_both_paths(cuda, lane):
+    """Kernels 3-4 at widths on both column paths (vector: k % 4 == 0 and
+    x aligned; scalar: any other k, or x offset by one float) exactly
+    equal to their plain versions; a column's bits do not depend on the
+    width or the path."""
+    dt = _staged(cuda, "rmat", lane)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(dt.shape[1], 1, device=cuda, generator=g)
+    ref = {name: fn(dt, x) for name, fn in (("fused", hbp_spmm_fused_max),
+                                            ("partials", hbp_spmm_partials_max))}
+    for k in (1, 2, 3, 4, 8, 128, 129, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, k // 2] = x[:, 0]
+        for name, kern, plain in (("fused", hbp_spmm_fused_max, hbp_spmm_fused_max_plain),
+                                  ("partials", hbp_spmm_partials_max,
+                                   hbp_spmm_partials_max_plain)):
+            Y = kern(dt, X)
+            _same_bits(Y, plain(dt, X), (name, k))
+            _same_bits(kern(dt, _offset(X)), Y, (name, k, "offset"))
+            _same_bits(Y[..., k // 2], ref[name][..., 0], (name, k, "column"))
+
+
+@pytest.mark.parametrize("lane", [8, 128, 12])
+def test_hub_max_kernels_equal_plain_and_fold_split_runs(cuda, lane):
+    """Runs longer than 4 * RUN_CHUNK: the max chunk chains and their fold
+    exactly equal the plain versions; empty row groups stay -inf in the
+    kernel's output and come out 0 from the entry point."""
+    tiles, dt = _hub(cuda, lane)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for k in (1, 2, 3, 4, 8, 128, 129, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        for Xk in (X, _offset(X)):
+            _same_bits(hbp_spmm_fused_max(dt, Xk), hbp_spmm_fused_max_plain(dt, X), k)
+            _same_bits(hbp_spmm_partials_max(dt, Xk), hbp_spmm_partials_max_plain(dt, X), k)
+    empty = torch.as_tensor(np.setdiff1d(np.arange(tiles.n_rowgroups), tiles.rowgroup),
+                            device=cuda)
+    assert empty.numel()
+    X = torch.randn(dt.shape[1], 8, device=cuda, generator=g)
+    assert bool(torch.all(torch.isneginf(hbp_spmm_fused_max(dt, X)[empty])))
+    Y = ops.hbp_spmm(dt, X, combine="max")
+    for s in ("partials", "stable"):
+        assert torch.equal(ops.hbp_spmm(dt, X, strategy=s, combine="max"), Y), s
+    assert bool(torch.all(ops.hbp_spmm_bucketed(dt, X[:, :5], combine="max") == Y[:, :5]))
+
+
+def _nan_tiles(cuda, name):
+    if name == "hub":
+        return _hub(cuda, 8)
+    if name == "rmat":
+        cfg = PartitionConfig(row_block=256, col_block=1024, group=8, lane=8)
+        tiles = build_tiles(MATRICES["rmat"](), cfg)
+    else:  # the first column of every block empty: reached by padding only
+        rng = np.random.default_rng(11)
+        dense = rng.standard_normal((256, 200)) * (rng.random((256, 200)) < 0.05)
+        dense[::3] = 0.0
+        dense[:, ::64] = 0.0
+        tiles = build_tiles(csr_from_dense(dense.astype(np.float32)),
+                            PartitionConfig(row_block=64, col_block=64, lane=8))
+    return tiles, ops.device_tiles(tiles, cuda)
+
+
+@pytest.mark.parametrize("name", ["rmat", "hub", "holes"])
+def test_max_carries_nan_on_the_card(cuda, name):
+    """A NaN in x reached by a live slot gives NaN through kernels 3-4, the
+    fused max's fold, the partials max combine (``segment_reduce``) and
+    both entry points, where the plain versions and "stable" give it; a
+    NaN reached only by padded slots changes nothing."""
+    tiles, dt = _nan_tiles(cuda, name)
+    x_row = tiles.colblock[:, None, None].astype(np.int64) * tiles.cfg.col_block + tiles.cols
+    live = np.unique(x_row[tiles.data != 0])
+    padding_only = torch.as_tensor(
+        np.setdiff1d(np.unique(x_row[tiles.data == 0]), live), device=cuda)
+    assert padding_only.numel() or name != "holes"
+    runs = list(zip(dt.run_rowgroup.tolist(), dt.run_start[:-1].tolist(),
+                    dt.run_start[1:].tolist()))
+    g = torch.Generator(device=cuda).manual_seed(10)
+    rng = np.random.default_rng(10)
+    for k in (1, 3, 8, 128):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[torch.as_tensor(rng.choice(live, 3, replace=False), device=cuda)] = float("nan")
+        X[padding_only] = float("nan")
+        Yf = hbp_spmm_fused_max(dt, X)
+        assert bool(torch.isnan(Yf).any()), k
+        _same_bits(Yf, hbp_spmm_fused_max_plain(dt, X), ("fused", k))
+        P = hbp_spmm_partials_max(dt, X)
+        _same_bits(P, hbp_spmm_partials_max_plain(dt, X), ("partials", k))
+        # the combine alone carries NaN on the card: each run's amax
+        want = torch.full((dt.n_rowgroups,) + P.shape[1:], float("-inf"), device=cuda)
+        for rg, a, b in runs:
+            want[rg] = P[a:b].amax(0)
+        _same_bits(ref.segment_max_sorted(P, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths),
+                   want, ("combine", k))
+        stable = ops.hbp_spmm(dt, X, strategy="stable", combine="max")
+        for s in ("fused", "partials"):
+            _same_bits(ops.hbp_spmm(dt, X, strategy=s, combine="max"), stable, (s, k))
+        X[padding_only] = 0.0
+        _same_bits(hbp_spmm_fused_max(dt, X), Yf, ("padding only", k))
+        _same_bits(hbp_spmm_partials_max(dt, X), P, ("padding only", k))

@@ -12,6 +12,8 @@ implementations reduce the lanes in different orders; the max monoid
 exactly, on every strategy.
 """
 import dataclasses
+import importlib
+import itertools
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import numpy as np
@@ -21,9 +23,11 @@ import torch
 import repro.core as jcore
 from repro.kernels import ops as jops
 import repro_torch.core as tcore
+from repro_torch import obs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.hbp_spmv import (
+    PartialsGeometry,
     hbp_spmm_fused,
     hbp_spmm_fused_max,
     hbp_spmm_partials,
@@ -35,6 +39,10 @@ from repro_torch.kernels.hbp_spmv import (
 )
 
 from hub_runs import hub_config, hub_coo
+
+# the kernels' module (``repro_torch.kernels.hbp_spmv`` is also the name of
+# the ops entry point, which an attribute lookup on the package returns)
+K = importlib.import_module("repro_torch.kernels.hbp_spmv")
 
 KS = (1, 3, 8, 128, 129, 256)
 LANES = (8, 128)
@@ -190,6 +198,53 @@ def test_max_edge_cases(max_edge_cases, strategy):
     assert np.all(Y[60, :5] < 0.0) and Y[60, 5] > 0.0
 
 
+def _nan_matrix():
+    """``_dense(3)`` with three NaN probes: column 10 is read by live slots
+    (row 20 among them); row 5's only entry is at column 40; column 64 (the
+    first of column block 2) holds no entry, so only padded slots read
+    its x row."""
+    dense = _dense(3)
+    dense[20, 10] = 0.7
+    dense[5] = 0.0
+    dense[5, 40] = 1.5
+    dense[:, 64] = 0.0
+    return dense
+
+
+_NAN_TILES = {}
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("lane", [8, 12])
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable"])
+def test_max_propagates_nan_like_jax(strategy, lane, k):
+    """Under the max monoid a NaN product of a live slot makes its output
+    NaN, as ``jnp.max`` does in the JAX package, while a NaN reached only
+    through padded slots stays masked: NaN positions equal, the rest
+    bitwise."""
+    if lane not in _NAN_TILES:
+        _NAN_TILES[lane] = _pair(_nan_matrix(), lane)
+    tj, dt = _NAN_TILES[lane]
+    x_row = tj.colblock[:, None, None] * tj.cfg.col_block + tj.cols
+    assert np.any((x_row == 64) & (tj.data == 0)) and not np.any((x_row == 64) & (tj.data != 0))
+    rng = np.random.default_rng(20 + k)
+    for row, probe in ((10, "live"), (40, "only"), (64, "padding")):
+        X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
+        X[row] = np.nan
+        y_j = np.asarray(jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True))
+        y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max").numpy()
+        nan = np.isnan(y_j)
+        np.testing.assert_array_equal(np.isnan(y_t), nan, err_msg=probe)
+        np.testing.assert_array_equal(y_t[~nan].view(np.uint32), y_j[~nan].view(np.uint32),
+                                      err_msg=probe)
+        if probe == "live":
+            assert np.all(np.isnan(y_t[20]))
+        elif probe == "only":
+            assert np.all(np.isnan(y_t[5]))  # NaN, not the 0 of a row with no live entry
+        else:
+            assert not nan.any()
+
+
 @pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
 def test_zero_row_groups_come_out_zero(zero_groups, strategy):
     dense, tj, dt = zero_groups
@@ -305,17 +360,30 @@ def test_traffic_model_charges_the_partials_buffer(tiles):
 
 
 def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
-    """The fused sum pays the chunk index once per stream pass and the
-    split runs' chunk buffer written and read once; the fused max (the
-    serial-run kernel) pays neither."""
+    """The fused kernels, sum and max alike, pay the chunk index once per
+    stream pass and the split runs' chunk buffer written and read once,
+    beyond what a strategy with neither ("stable") pays; the fused entry
+    point records those bytes under either monoid."""
     _, dt = hub
     assert dt.n_split_chunks > 0
     for k, kt in ((1, "grid"), (8, "grid"), (256, "grid"), (256, "loop")):
         fused = tops.modeled_launch_bytes(dt, k, "fused", kt)
-        fused_max = tops.modeled_launch_bytes(dt, k, "fused", kt, combine="max")
+        plain = tops.modeled_launch_bytes(dt, k, "stable", kt)
         passes = tops.stream_passes(k, "fused", kt)
         assert dt.chunk_buffer_nbytes(k) == dt.n_split_chunks * 8 * k * 4
-        assert fused - fused_max == passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
+        assert fused - plain == passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
+    X = np.random.default_rng(14).standard_normal((dt.shape[1], 8)).astype(np.float32)
+    obs.reset()
+    obs.enable()
+    try:
+        for combine in ("sum", "max"):
+            before = obs.registry().value("kernels.bytes_modeled")
+            tops.hbp_spmm(dt, X, strategy="fused", combine=combine)
+            recorded = obs.registry().value("kernels.bytes_modeled") - before
+            assert recorded == tops.modeled_launch_bytes(dt, 8, "fused", "grid"), combine
+    finally:
+        obs.disable()
+        obs.reset()
 
 
 def test_deferred_paths_raise_not_implemented(tiles):
@@ -350,7 +418,7 @@ def test_wrappers_check_their_operands(tiles):
         tops.hbp_spmv(dt, x, device="meta")
 
 
-# --- the chunk index of the fused sum kernels --------------------------------
+# --- the chunk index of the fused kernels ------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -466,14 +534,14 @@ def test_hub_fused_matches_jax(hub, k):
         _close(tops.hbp_spmm(dt, X, strategy="fused", device="cpu"), y_j)
 
 
-# --- the launch geometry of the partials sum kernels ------------------------
+# --- the launch geometry of the tile-row kernel (kernels 3-6) ---------------
 
 
 def _covered(geo, n_tiles, group, k):
     """Flat index ``(t * group + g) * k + c`` of every output element the
-    partials sum kernels write in launch geometry ``geo``: the index
-    arithmetic of ``hbp_partials_sum_kernel`` (``csrc/hbp_partials.cu``)
-    over every thread of the grid."""
+    tile-row kernel writes in launch geometry ``geo`` over ``n_tiles``
+    items: the index arithmetic of ``hbp_rows_kernel``
+    (``csrc/hbp_rows.cuh``) over every thread of the grid."""
     tile_threads = geo.slab * (group // geo.rows)
     by, bx, tid = np.meshgrid(np.arange(geo.grid[1]), np.arange(geo.grid[0]),
                               np.arange(geo.block), indexing="ij")
@@ -495,18 +563,69 @@ def _covered(geo, n_tiles, group, k):
 def test_partials_geometry_covers_every_output_once(k, aligned):
     """Every (tile, row, column) is written by exactly one thread, the
     vector path is taken exactly when k % 4 == 0 and the pointers are
-    aligned, and a block fits the kernel's 256 threads.  The lane count
-    does not enter the geometry (it is the kernel's compile-time
-    specialisation)."""
-    for group in (8, 4, 12, 1, 64):
-        for n_tiles in (1, 37):
-            geo = partials_geometry(n_tiles, group, k, aligned)
-            assert geo.width == (4 if aligned and k % 4 == 0 else 1)
-            tile_threads = geo.slab * (group // geo.rows)
-            assert group % geo.rows == 0 and geo.block <= 256
-            assert geo.block % tile_threads == 0 and geo.grid[1] <= 65535
-            counts = np.bincount(_covered(geo, n_tiles, group, k), minlength=n_tiles * group * k)
-            assert counts.size == n_tiles * group * k and np.all(counts == 1), (group, n_tiles)
+    aligned, and a block fits the kernel's 256 threads, at the rows a
+    thread the geometry picks for a tile and at the fused max's
+    ``CHUNK_ROWS``.  The lane count does not enter the geometry (it is the
+    kernel's compile-time specialisation)."""
+    for group, n_tiles, rows in itertools.product((8, 4, 12, 1, 64), (1, 37),
+                                                  (None, K.CHUNK_ROWS)):
+        geo = partials_geometry(n_tiles, group, k, aligned, rows)
+        assert rows is None or geo.rows == rows
+        assert geo.width == (4 if aligned and k % 4 == 0 else 1)
+        tile_threads = geo.slab * (group // geo.rows)
+        assert group % geo.rows == 0 and geo.block <= 256
+        assert geo.block % tile_threads == 0 and geo.grid[1] <= 65535
+        counts = np.bincount(_covered(geo, n_tiles, group, k), minlength=n_tiles * group * k)
+        assert counts.size == n_tiles * group * k and np.all(counts == 1), (group, n_tiles, rows)
     # at k = 128, two warps per tile: 64 threads of 4 columns and 4 rows
     geo = partials_geometry(10, 8, 128, True)
     assert (geo.width, geo.rows, geo.slab * 8 // geo.rows) == (4, 4, 64)
+
+
+# --- the max kernels' launches in that geometry -------------------------------
+
+
+def _offset(x):
+    """``x``'s values in storage that starts one float past a 16-byte boundary."""
+    y = torch.empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("k", [1, 3, 8, 128, 129, 256])
+@pytest.mark.parametrize("kernel", ["fused_max", "partials_max"])
+def test_max_launch_geometry_writes_every_output_once(hub, monkeypatch, kernel, k, aligned):
+    """The geometry the max wrappers hand their launchers covers every
+    (chunk, g, c) of the fused max, or (tile, g, c) of the partials max,
+    exactly once, on the vector path iff k % 4 == 0 and x is aligned; the
+    fused max's chunks write each one-chunk run's row group and each
+    chunk-buffer row once, and no row group of a split run."""
+    _, dt = hub
+    launched = []
+    monkeypatch.setattr(K, "_launch", lambda lib, fn, tensors, dt_, x, counts, *tail:
+                        launched.append((fn, counts, tail)))
+    X = torch.randn(dt.shape[1], k, generator=torch.Generator().manual_seed(k))
+    X = X if aligned else _offset(X)
+    group = dt.data.shape[1]
+    if kernel == "fused_max":
+        K._fused_max(dt, X, torch.empty((dt.n_rowgroups, group, k)))
+        n_items = dt.chunk_dest.shape[0]
+    else:
+        K._partials_launch("hbp_spmm_partials_max_launch", dt, X, torch.empty((dt.n_tiles, group, k)), k)
+        n_items = dt.n_tiles
+    (fn, counts, tail), = launched
+    assert fn == f"hbp_spmm_{kernel}_launch" and counts[0] == n_items and tail[0] == k
+    geo = PartialsGeometry(*tail[1:5], tuple(tail[5:]))
+    assert geo.width == (4 if aligned and k % 4 == 0 else 1) and geo.block <= 256
+    covered = _covered(geo, n_items, group, k)
+    counts = np.bincount(covered, minlength=n_items * group * k)
+    assert counts.size == n_items * group * k and np.all(counts == 1)
+    if kernel == "fused_max":
+        dest = dt.chunk_dest.numpy()
+        rows = dest[covered // (group * k)]
+        y_rows, buf_rows = np.unique(rows[rows >= 0]), np.unique(~rows[rows < 0])
+        np.testing.assert_array_equal(buf_rows, np.arange(dt.n_split_chunks))
+        assert y_rows.size == np.count_nonzero(dest >= 0)
+        split_groups = dt.run_rowgroup.numpy()[dt.split_run.numpy()]
+        assert dt.split_run.numel() and not np.isin(split_groups, y_rows).any()
