@@ -28,8 +28,9 @@ Phases (any failure exits non-zero; none is caught):
    all-negative row stays negative under max.  NaN under max: with NaN in
    x rows that live slots read (and in rows only padded slots read) on
    ``m4_kron16``, the hub-run matrix and a matrix whose block-start
-   columns are empty, kernels 3-4 and the partials combine put NaN exactly
-   where their plain versions do (the rest bitwise), both entry points
+   columns are empty, kernels 3-4 and the partials combine (plain, and the
+   combine kernel of kernel 4's ``runs=True`` launch call, the partials max
+   entry point's path) put NaN exactly where their plain versions do (the rest bitwise), both entry points
    agree with ``"stable"``, and the padding-only NaN changes nothing;
 4. serving  — ``MatrixRegistry(device="cuda")`` admits ``m4_kron16`` with
    the heuristic geometry and ``m1_asic320k`` with a measured search
@@ -54,14 +55,46 @@ Phases (any failure exits non-zero; none is caught):
    two strategies agree within ``rtol=1e-4, atol=1e-4 * max(1,
    |logits|_inf)``; the max kernels' launch counters must rise;
 7. times    — CUDA-event times of each kernel, its plain version and, for
-   the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick
-   the port never calls) on ``m4_kron16`` (the partials SpMM and both max
+   the sum kernels, the ``torch.sparse_csr_tensor`` product (a yardstick;
+   the port calls it only as its front door's CSR baseline) on ``m4_kron16`` (the partials SpMM and both max
    kernels also at the GNN hidden width k = 256), and of the fused SpMV
    and SpMM on ``m10_ohne2`` at k = 1 and 8, beside the least time the
    card could take for the kernel's own work (``kernel_bytes``: the
    partials kernels read tiles and x and write the per-tile partials; the
    fused kernels read tiles, run index and x and write y), and for the
-   fused kernels the traffic of their chunk buffer beside it.
+   fused kernels the traffic of their chunk buffer beside it; for the
+   partials max also kernel 4 with its run combine (``runs_ms``) beside
+   the plain combine it replaces (``plain_combine_ms``);
+
+and, run after phase 3 (zero, spmv) and after phase 6 (train):
+
+* zero     — the signed-zero probe of ``tests/hub_runs.py`` (x = +0 and
+  -0, so every product is a zero): kernels 3-4, their plain versions, the
+  run combine and the fused, partials and stable entry points rank
+  ``+0.0`` above ``-0.0`` (IEEE's maximum, as ``jnp.maximum``) in lane
+  order, tile order and across a split run's chunks, compared as bit
+  patterns;
+* spmv     — the front door ``repro_torch.core.spmv`` / ``spmm`` on
+  ``m4_kron16`` as a ``CSRMatrix`` (torch's sparse-CSR product, cuSPARSE)
+  and as ``HBPTiles`` (the fused kernels), within ``1e-5 * (|A| |x|)`` of
+  a float64 CSR product, the ``[n, 1]`` shape kept;
+* train    — GNN training at the same ``ogbn-arxiv`` widths: GCN over
+  ``A_hat`` (symmetric, so its registry pair self-links) and SAGE-mean /
+  SAGE-max over ``rmat_graph(1 << 16, 79.345703125, seed=4,
+  symmetric=False)`` (A and its transpose differ), admitted with
+  ``admit_pair`` under ``"fused"`` and ``"partials"``.  Gradients: sum
+  and mean ``x_bar`` within ``1e-5 * (|A^T| |y_bar|)`` of a float64
+  ``A^T @ (y_bar / d)``, with kernel 2 (fused) or 6 (partials) launched
+  during the backward alone; max: ``y``, ``idx``, ``coeff`` bitwise the
+  CPU argmax on sampled columns and ``x_bar`` within ``(m + 1) * 2**-24 *
+  sum|coeff * y_bar|`` of a float64 scatter (its atomic adds run in no
+  fixed order).  ``fit``: 3 steps of each model under both strategies
+  from the same weights, finite losses, the last below the first, the two
+  strategies' histories within ``rtol=1e-3``; ``fit_sampled``: SAGE-mean,
+  fanouts (10, 5), batch 1024, two epochs of four batches, the second
+  admitting nothing.  Prints ms per train step (CUDA events), the argmax
+  SpMM's ms at k = 128 and 256 and its share of a SAGE-max step, and
+  ``torch.cuda.max_memory_allocated``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -98,6 +131,10 @@ RTOL = 1e-5
 LOGIT_RTOL = 1e-4
 # GraphSAGE baseline of OGB ogbn-arxiv (examples/nodeproppred/arxiv/gnn.py)
 GNN_DIMS = [128, 256, 256, 40]
+# AdamW of the training phase: the trainer's schedule at a peak of 5e-3
+# (at its default 2e-2 the unnormalized SAGE-max logits overshoot by the
+# third step)
+TRAIN_ADAMW = dict(lr_peak=5e-3, warmup_steps=5, decay_steps=500, weight_decay=0.0)
 
 
 def fail(msg: str) -> None:
@@ -211,6 +248,193 @@ class Float64Csr:
               f"{what}: disagrees with the float64 CSR product")
 
 
+class Float64Transpose:
+    """``Aᵀ`` and ``|Aᵀ|`` in float64 on the card: the reference the sum
+    and mean backward (``x̄ = Aᵀ (ȳ / d)``) is held against."""
+
+    def __init__(self, csr, dev):
+        self.T = Float64Csr(csr.transpose(), dev)
+        self.div = torch.as_tensor(np.maximum(np.diff(csr.indptr), 1), dtype=torch.float64,
+                                   device=dev)[:, None]
+
+    def check(self, xbar, ybar, what: str, mean: bool = False) -> None:
+        g = ybar.double() / self.div if mean else ybar.double()
+        self.T.check(xbar, g, what)
+
+
+def scatter_reference(y_bar, idx, coeff, n_cols: int):
+    """The max backward in float64 (each ``coeff * ȳ`` exact there), with
+    the bound of an f32 scatter in any order: an element receiving ``m``
+    terms is within ``(m + 1) * 2**-24 * sum|terms|`` of the exact sum."""
+    k = y_bar.shape[1]
+    live = idx >= 0
+    flat = (idx.clamp(min=0).long() * k + torch.arange(k, device=idx.device)).reshape(-1)
+    terms = torch.where(live, coeff.double() * y_bar.double(), 0.0).reshape(-1)
+    zeros = torch.zeros(n_cols * k, dtype=torch.float64, device=idx.device)
+    exact = zeros.index_add(0, flat, terms).reshape(n_cols, k)
+    mag = zeros.index_add(0, flat, terms.abs()).reshape(n_cols, k)
+    m = zeros.index_add(0, flat, live.reshape(-1).double()).reshape(n_cols, k)
+    return exact, (m + 1) * 2.0 ** -24 * mag
+
+
+def train_phase(graph_regs, A_sym, dev, g, wrappers, reset_counts, read_counts) -> None:
+    """GCN, SAGE-mean and SAGE-max training on the card at the ogbn-arxiv
+    GraphSAGE widths (see the module docstring, phase ``train``)."""
+    from repro_torch.graph import add_self_loops, normalize_adjacency, rmat_graph
+    from repro_torch.graph import plan_diff_aggregator
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig
+
+    adamw = AdamWConfig(**TRAIN_ADAMW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A_ns = rmat_graph(1 << 16, 79.345703125, seed=4, symmetric=False)
+    n = A_ns.shape[0]
+    regs = graph_regs  # A_hat is resident there from the graph phase
+    plans = {s: reg.admit_pair(A_ns, "A_ns") for s, reg in regs.items()}
+    for s, reg in regs.items():
+        check(reg.transpose_of(plans[s]) is not plans[s], "A_ns self-linked")
+    log(f"[train] A_ns {A_ns.shape} nnz={A_ns.nnz} (symmetric=False), admitted with its "
+        f"transpose under fused and partials in {time.perf_counter() - t0:.1f} s; tiles "
+        f"A {plans['fused'].tiles.n_tiles}, A^T {regs['fused'].transpose_of(plans['fused']).tiles.n_tiles}")
+    A_hat = normalize_adjacency(add_self_loops(A_sym), "sym")
+    for s, reg in regs.items():
+        p_hat = reg.admit_pair(A_hat)
+        check(reg.transpose_of(p_hat) is p_hat, f"{s}: the symmetric A_hat is not self-linked")
+
+    # gradient checks on the served pair, one backward alone per op
+    ref_T = Float64Transpose(A_ns, dev)
+    x = torch.randn(n, GNN_DIMS[1], device=dev, generator=g)
+    y_bar = torch.randn(n, GNN_DIMS[1], device=dev, generator=g)
+    backward_kernel = {"fused": "hbp_spmm_fused", "partials": "hbp_spmm_partials"}
+    for s, plan in plans.items():
+        for op in ("sum", "mean"):
+            xr = x.clone().requires_grad_(True)
+            y = plan_diff_aggregator(plan, op=op)(xr)
+            reset_counts()
+            (x_bar,) = torch.autograd.grad(y, xr, y_bar)
+            torch.cuda.synchronize()
+            counts = read_counts((backward_kernel[s],))
+            check(counts[backward_kernel[s]] > 0,
+                  f"{s} {op}: the backward launched no {backward_kernel[s]}: {counts}")
+            ref_T.check(x_bar, y_bar, f"{s} {op} backward", mean=op == "mean")
+        log(f"[train] {s}: sum and mean backward (x_bar = A^T (y_bar / d)) within "
+            f"1e-5 * (|A^T| |y_bar|) of float64; {backward_kernel[s]} launched in the backward "
+            f"alone ({counts[backward_kernel[s]]} for mean)")
+    # max: the argmax triple on the card is the CPU's, bit for bit, on
+    # sampled columns; the scatter within the bound of its atomic order
+    plan = plans["fused"]
+    xr = x.clone().requires_grad_(True)
+    f_max = plan_diff_aggregator(plan, op="max")
+    y = f_max(xr)
+    check(torch.equal(y.detach().view(torch.int32), ops.hbp_spmm(
+        plan.device, x, strategy="stable", combine="max").view(torch.int32)),
+          "max aggregation != the stable max SpMM")
+    y_c, idx_c, coeff_c = ops.hbp_spmm_argmax(plan.device, x)
+    cols = [0, GNN_DIMS[1] // 2, GNN_DIMS[1] - 1]
+    dt_cpu = ops.device_tiles(plan.tiles, "cpu")
+    cpu = ops.hbp_spmm_argmax(dt_cpu, x[:, cols].cpu())
+    for name, a, b in zip(("y", "idx", "coeff"), (y_c, idx_c, coeff_c), cpu):
+        check(torch.equal(a[:, cols].cpu().view(torch.int32), b.view(torch.int32)),
+              f"argmax {name}: the card differs from the CPU on sampled columns")
+    (x_bar,) = torch.autograd.grad(y, xr, y_bar)
+    exact, bound = scatter_reference(y_bar, idx_c, coeff_c, n)
+    err = (x_bar.double() - exact).abs()
+    check(bool(torch.all(err <= bound)), f"max backward: err {err.max().item():.3e} over its bound")
+    log(f"[train] max: y, idx, coeff bitwise the CPU argmax on columns {cols}; y bitwise the "
+        f"stable max SpMM; x_bar within (m + 1) * 2^-24 * sum|coeff * y_bar| of a float64 "
+        f"scatter (max err {err.max().item():.3e}, {int((idx_c >= 0).sum())} live of "
+        f"{idx_c.numel()})")
+    del ref_T, x, y_bar, xr, y, y_c, idx_c, coeff_c, dt_cpu, cpu, exact, bound, err, x_bar
+
+    # training runs: the same carried weights under both strategies
+    gx = torch.Generator(device=dev).manual_seed(8)
+    feats = torch.randn(n, GNN_DIMS[0], device=dev, generator=gx)
+    proj = torch.randn(GNN_DIMS[0], GNN_DIMS[-1], device=dev, generator=gx)
+    labels = torch.argmax(feats @ proj, dim=1)  # a learnable signal
+    runs = {"gcn": ("gcn", "sum", A_sym), "sage-mean": ("sage", "mean", A_ns),
+            "sage-max": ("sage", "max", A_ns)}
+    step_ms, histories = {}, {}
+
+    def timed_steps(trainer, state, agg, n_steps=2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n_steps):
+            state, _ = trainer.step(state, agg, feats, labels)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n_steps
+
+    reset_counts()
+    for rname, (model, op, adj) in runs.items():
+        for s, reg in regs.items():
+            trainer = NodeClassifierTrainer(GNN_DIMS, model=model, op=op, registry=reg,
+                                            adamw=adamw)
+            check(trainer.device == reg.device, "the trainer left its registry's device")
+            state, hist = trainer.fit(adj, feats, labels, steps=3, key=9)
+            losses = [h["loss"] for h in hist]
+            check(all(np.isfinite(losses)), f"{rname} {s}: losses {losses}")
+            check(losses[-1] < losses[0], f"{rname} {s}: loss did not fall: {losses}")
+            histories[rname, s] = losses
+            agg = trainer.aggregator(trainer.prepare_adjacency(adj))
+            step_ms[rname, s] = timed_steps(trainer, state, agg)
+        a, b = np.array(histories[rname, "fused"]), np.array(histories[rname, "partials"])
+        check(np.allclose(a, b, rtol=1e-3, atol=0.0),
+              f"{rname}: fused and partials histories disagree: {a} vs {b}")
+        log(f"[train] {rname}: fit 3 steps, losses fused {a.tolist()} partials {b.tolist()}; "
+            f"ms per train step (CUDA events, 2 steps after fit): fused "
+            f"{step_ms[rname, 'fused']:.3f}, partials {step_ms[rname, 'partials']:.3f}")
+
+    log(f"[train] kernel launches over the six fit runs and their timed steps: "
+        f"{read_counts(tuple(wrappers))}")
+
+    # the argmax at the SAGE-max widths, and its share of a SAGE-max step
+    dt_a = plans["fused"].device
+    argmax_ms = {}
+    for k in (GNN_DIMS[0], GNN_DIMS[1]):
+        xk = torch.randn(n, k, device=dev, generator=g)
+        argmax_ms[k] = timed_ms(lambda: ops.hbp_spmm_argmax(dt_a, xk), 3, warmup=1)
+    T, group, _ = dt_a.data.shape
+    # bytes the argmax must move at k = 256: the tiles, x, and y, idx, coeff
+    bound = (dt_a.data.nbytes + dt_a.cols.nbytes + dt_a.colblock.nbytes
+             + n * GNN_DIMS[1] * 4 * 4) / card_peaks(torch.cuda.get_device_name(0))[1] * 1e3
+    per_step = argmax_ms[GNN_DIMS[0]] + 2 * argmax_ms[GNN_DIMS[1]]  # three layers
+    log(f"[train] argmax SpMM on A_ns: {argmax_ms[GNN_DIMS[0]]:.3f} ms at k={GNN_DIMS[0]}, "
+        f"{argmax_ms[GNN_DIMS[1]]:.3f} ms at k={GNN_DIMS[1]} (bound {bound:.4f} ms); "
+        f"T={T} tiles of [{group}, {dt_a.data.shape[2]}]; the three forward argmaxes take "
+        f"{per_step:.3f} ms = {100 * per_step / step_ms['sage-max', 'fused']:.1f} % of a fused "
+        f"SAGE-max step ({step_ms['sage-max', 'fused']:.3f} ms)")
+
+    # neighbor-sampled mini-batches: two epochs of the same four batches
+    reg = regs["fused"]
+    trainer = NodeClassifierTrainer(GNN_DIMS, model="sage", op="mean", registry=reg,
+                                    adamw=adamw)
+    train_nodes = np.random.default_rng(10).choice(n, 4 * 1024, replace=False)
+    t0 = time.perf_counter()
+    state, h1 = trainer.fit_sampled(A_ns, feats, labels, steps=4, batch_size=1024,
+                                    fanouts=(10, 5), train_nodes=train_nodes, seed=11, key=9)
+    t1 = time.perf_counter()
+    misses = reg.metrics.value("registry.misses", 0)
+    resident = len(reg)
+    state, h2 = trainer.fit_sampled(A_ns, feats, labels, steps=4, batch_size=1024,
+                                    fanouts=(10, 5), train_nodes=train_nodes, seed=11,
+                                    state=state)
+    t2 = time.perf_counter()
+    check(reg.metrics.value("registry.misses", 0) == misses and len(reg) == resident,
+          "the second epoch admitted new plans")
+    check([h["batch_nodes"] for h in h1] == [h["batch_nodes"] for h in h2],
+          "the second epoch sampled other batches")
+    losses = [h["loss"] for h in h1 + h2]
+    check(all(np.isfinite(losses)), f"fit_sampled losses {losses}")
+    log(f"[train] fit_sampled SAGE-mean fanouts (10, 5), batch 1024: epoch 1 {t1 - t0:.1f} s "
+        f"(batch nodes {[h['batch_nodes'] for h in h1]}), epoch 2 {t2 - t1:.1f} s with no new "
+        f"admission ({resident} plans resident); losses {[round(v, 4) for v in losses]}")
+    log(f"[train] torch.cuda.max_memory_allocated over the phase: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -232,8 +456,10 @@ def main() -> None:
     K = importlib.import_module("repro_torch.kernels.hbp_spmv")
     from repro_torch.serving import MatrixRegistry, QoSClass, ServingEngine
 
+    from repro_torch.core import spmm, spmv
+
     sys.path.insert(0, str(ROOT / "tests"))
-    from hub_runs import hub_config, hub_coo
+    from hub_runs import ZERO_CONFIG, hub_config, hub_coo, signed_zero_coo
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -324,6 +550,10 @@ def main() -> None:
             for name in ("hbp_spmm_fused_max", "hbp_spmm_partials_max"):
                 errs[name, label, k] = exactly(wrappers[name](d, X), plains[name](d, X),
                                                f"{label} {name} k={k}")
+            # kernel 4 with its run combine (the entry point's launch call)
+            exactly(K.hbp_spmm_partials_max(d, X, runs=True),
+                    K.hbp_spmm_partials_max_plain(d, X, runs=True),
+                    f"{label} hbp_spmm_partials_max runs=True k={k}")
         # the partials sum kernels' scalar-column path: k not a multiple of
         # 4, and an x whose storage starts one float past a 16-byte boundary
         for k, offset in ((3, False), (129, False), (128, True)):
@@ -364,7 +594,8 @@ def main() -> None:
         log(f"[kernels] {label}: max abs err vs plain "
             + ", ".join(f"{n} k={k}: {e:.3e}" for (n, lab, k), e in errs.items()
                         if lab == label and not n.endswith("_max"))
-            + "; max kernels exactly plain at k=1, 8, 128, 256; bitwise SpMV == SpMM column "
+            + "; max kernels (and kernel 4 with its run combine) exactly plain at k=1, 8, 128, "
+              "256; bitwise SpMV == SpMM column "
               "(fused and partials, k=1, 8, 128, 256, bucket 5->8; partials on the "
               "scalar-column path at k=3, 129 and 128 with x offset by one float); "
               "grid == loop at k=256 "
@@ -452,6 +683,8 @@ def main() -> None:
             same_bits(P, K.hbp_spmm_partials_max_plain(d, X), f"{label} partials max k={k}")
             combined = ref.segment_max_sorted(P, d.rowgroup, d.n_rowgroups, d.rg_lengths)
             same_bits(combined, Yf, f"{label} partials combine k={k}")
+            same_bits(K.hbp_spmm_partials_max(d, X, runs=True), Yf,
+                      f"{label} partials max with its run combine k={k}")
             stable = ops.hbp_spmm(d, X, strategy="stable", combine="max")
             for strategy in ("fused", "partials"):
                 same_bits(ops.hbp_spmm(d, X, strategy=strategy, combine="max"), stable,
@@ -464,6 +697,69 @@ def main() -> None:
             f"the partials combine carry them exactly as the plain versions, both entry points "
             f"as stable; NaN in {padding_only.numel()} x rows read only by padded slots changed "
             "nothing")
+
+    # --- zero: IEEE's maximum ranks +0.0 above -0.0 -----------------------
+    # x = 0 makes every product -0.0 or +0.0; the probe rows meet the tie in
+    # lane order, in tile order and across the two chunks of a split run
+    # (tests/hub_runs.py).  Kernels 3-4 (kernel 4 with the run combine), the
+    # plain versions and both entry points, compared as bit patterns.
+    z_rows, z_cols, z_vals, z_shape, z_want = signed_zero_coo()
+    dz = ops.device_tiles(build_tiles(csr_from_coo(COOMatrix(z_rows, z_cols, z_vals, z_shape)),
+                                      PartitionConfig(**ZERO_CONFIG)), dev)
+    check(dz.n_split_chunks > 0, "the signed-zero probe has no split run")
+
+    def zero_bits(y_hashed):
+        # rows with no live entry hold the identity -inf; they come out 0
+        y_hashed = y_hashed.masked_fill(torch.isneginf(y_hashed), 0.0)
+        return ref.unpermute(y_hashed, dz.perm, z_shape[0]).view(torch.int32)
+
+    for sign in (0.0, -0.0):
+        # with x = -0.0 the products flip sign: the all-(-1) row gives +0.0
+        want_z = np.zeros_like(z_want) if np.signbit(sign) else z_want
+        for k in (1, 4, 8, 128):
+            X = torch.full((z_shape[1], k), sign, device=dev)
+            want_t = torch.as_tensor(np.repeat(want_z[:, None], k, 1), device=dev).view(torch.int32)
+            Yf, P = K.hbp_spmm_fused_max(dz, X), K.hbp_spmm_partials_max(dz, X)
+            check(torch.equal(Yf.view(torch.int32), K.hbp_spmm_fused_max_plain(dz, X).view(torch.int32))
+                  and torch.equal(P.view(torch.int32),
+                                  K.hbp_spmm_partials_max_plain(dz, X).view(torch.int32)),
+                  f"zero x={sign} k={k}: kernels 3-4 differ from their plain versions in bits")
+            check(torch.equal(zero_bits(Yf), want_t), f"zero x={sign} k={k}: kernel 3's sign of zero")
+            combined = ref.segment_max_sorted(P, dz.rowgroup, dz.n_rowgroups, dz.rg_lengths)
+            check(torch.equal(zero_bits(combined), want_t),
+                  f"zero x={sign} k={k}: kernel 4 + combine's sign of zero")
+            runs = K.hbp_spmm_partials_max(dz, X, runs=True)
+            check(torch.equal(zero_bits(runs), want_t),
+                  f"zero x={sign} k={k}: kernel 4 + its combine kernel's sign of zero")
+            for strategy in ("fused", "partials", "stable"):
+                got = ops.hbp_spmm(dz, X, strategy=strategy, combine="max").view(torch.int32)
+                check(torch.equal(got, want_t), f"zero x={sign} k={k}: {strategy} entry point")
+    log("[zero] kernels 3-4, their plain versions, the run combine (plain and kernel 4's "
+        "combine kernel) and the fused, partials and "
+        "stable entry points give +0.0 above -0.0 (lane order, tile order, split-run fold) and "
+        "-0.0 for a row of -0.0 products, at x = +0/-0 and k = 1, 4, 8, 128, as bit patterns")
+
+    # --- spmv: the front door on CSR (cuSPARSE) and on HBP tiles ----------
+    reset_counts()
+    kron64 = Float64Csr(kron, dev)
+    x = torch.randn(kron.shape[1], device=dev, generator=g)
+    X8 = torch.randn(kron.shape[1], 8, device=dev, generator=g)
+    # the default backend: both containers run on the card
+    for label, A_in in (("csr", kron), ("tiles", kron_tiles)):
+        y = spmv(A_in, x)
+        check(y.shape == (kron.shape[0],) and y.device.type == "cuda", f"[spmv] {label}: {y.shape}")
+        kron64.check(y[:, None], x[:, None], f"spmv {label}")
+        col = spmv(A_in, x[:, None])
+        check(col.shape == (kron.shape[0], 1), f"[spmv] {label}: [n, 1] became {tuple(col.shape)}")
+        kron64.check(col, x[:, None], f"spmv {label} [n, 1]")
+        Y = spmm(A_in, X8)
+        check(Y.shape == (kron.shape[0], 8), f"[spmm] {label}: {tuple(Y.shape)}")
+        kron64.check(Y, X8, f"spmm {label}")
+    counts = read_counts(("hbp_spmv_fused", "hbp_spmm_fused"))
+    check(all(n > 0 for n in counts.values()), f"[spmv] the tiles took no kernel: {counts}")
+    log(f"[spmv] spmv / spmm on m4_kron16 as CSRMatrix (torch sparse CSR, cuSPARSE) and as "
+        f"HBPTiles (fused kernels: {counts}) within 1e-5 * (|A| |x|) of float64; [n, 1] kept")
+    del kron64
 
     # --- 4./5. serving: the fused and the partials registry ---------------
     asic = SUITE_SPECS["m1_asic320k"](0)
@@ -553,8 +849,10 @@ def main() -> None:
         graphs = {"A": A, "A_hat": A_hat}
         reset_counts()
         plans = {}
+        graph_regs = {}  # kept for the training phase, which serves A_hat again
         for strategy in ("fused", "partials"):
-            reg = MatrixRegistry(device="cuda", cache_dir=cache, search=False, strategy=strategy)
+            reg = graph_regs[strategy] = MatrixRegistry(
+                device="cuda", cache_dir=cache, search=False, strategy=strategy)
             for gname, csr in graphs.items():
                 plans[strategy, gname] = plan = reg.admit(csr, gname)
                 log(f"[graph] {strategy}: admitted {gname} cfg={plan.cfg} "
@@ -626,6 +924,10 @@ def main() -> None:
             launches[name] = counts[name]
         del plans, logits, ref64
 
+        # --- train: GCN and GraphSAGE training at full width ---------------
+        train_phase(graph_regs, A, dev, g, wrappers, reset_counts, read_counts)
+        del graph_regs
+
     # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
     def csr_tensor(csr):
         return torch.sparse_csr_tensor(
@@ -678,13 +980,20 @@ def main() -> None:
             buf = 2 * d.chunk_buffer_nbytes(k)
             row["chunk_buffer_bytes"] = buf
             row["chunk_buffer_ms"] = buf / peak_bw * 1e3
-        if "partials" in name:
+        if name == "hbp_spmm_partials_max":
+            # the entry point's launch call: kernel 4 and its run combine
+            # on the card; beside it the plain combine over the partials
+            # (segment_reduce and the +0.0 pass), which it replaces
+            contrib = kern(d, arg)
+            row["runs_ms"] = timed_ms(lambda: kern(d, arg, runs=True), 10)
+            row["plain_combine_ms"] = timed_ms(lambda: ref.segment_max_sorted(
+                contrib, d.rowgroup, d.n_rowgroups, d.rg_lengths), 10)
+        elif "partials" in name:
             # the combine's time: it reads the partials back
             contrib = kern(d, arg)
-            combine = ref.segment_max_sorted if name.endswith("_max") else ref.segment_sum_sorted
             view = contrib[..., None] if k == 1 else contrib
-            row["combine_ms"] = timed_ms(
-                lambda: combine(view, d.rowgroup, d.n_rowgroups, d.rg_lengths), 10)
+            row["combine_ms"] = timed_ms(lambda: ref.segment_sum_sorted(
+                view, d.rowgroup, d.n_rowgroups, d.rg_lengths), 10)
         # the whole entry point: kernel, combine, -inf mapping and unpermute
         kw = dict(strategy="partials" if "partials" in name else "fused")
         if k == 1:

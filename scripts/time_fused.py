@@ -38,8 +38,9 @@ the same kernels (columns and rows per thread, column units per slab).
 ``--family max``: kernels 3-4 (the fused and the partials max) on
 ``m4_kron16`` at k = 8, 128, 256, ``m10_ohne2`` at k = 8 and the hub-run
 matrix at k = 8, 128, 256, each with its entry point
-(``ops.hbp_spmm(combine="max")``; for the partials the combine timed
-alone too), its own bound (``chip_smoke.kernel_bytes``) and a SHA-256;
+(``ops.hbp_spmm(combine="max")``; for the partials the plain combine
+timed alone too, ``segment_reduce`` alone, and, on trees whose kernel 4
+takes ``runs``, kernel 4 with its run combine kernel, ``runs_ms``), its own bound (``chip_smoke.kernel_bytes``) and a SHA-256;
 then a 3-layer GraphSAGE-max forward (the ``chip_smoke.py`` graph phase's
 model and graph) under ``"fused"`` and ``"partials"``.  Its
 ``--geometry-sweep`` (trees whose max kernels take a launch geometry)
@@ -50,6 +51,7 @@ import argparse
 import dataclasses
 import hashlib
 import importlib
+import inspect
 import json
 import re
 import subprocess
@@ -147,8 +149,21 @@ def max_family(args, staged, K, ops, ref, dev, g, emit, peak_bw) -> None:
                                                               combine="max")),
                    "bound_ms": kernel_bytes(kname, dt, k) / peak_bw * 1e3}
             if strategy == "partials":
+                # the plain combine (segment_reduce, then the +0.0 pass) and
+                # segment_reduce alone, the combine before that pass
                 row["combine_ms"] = steady_ms(lambda: ref.segment_max_sorted(
                     out, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths))
+                row["segment_reduce_ms"] = steady_ms(lambda: torch.segment_reduce(
+                    out, "max", lengths=dt.rg_lengths, axis=0, unsafe=True,
+                    initial=float("-inf")))
+                if "runs" in inspect.signature(kern).parameters:
+                    # kernel 4 and its run combine kernel in one launch call
+                    runs = kern(dt, X, runs=True)
+                    row["runs_ms"] = steady_ms(lambda: kern(dt, X, runs=True))
+                    row["runs_sha256"] = sha256(runs)
+                    row["runs_exact"] = bool(torch.equal(
+                        runs.view(torch.int32), plain(dt, X, runs=True).view(torch.int32)))
+                    del runs
             else:
                 row.update(n_chunks=int(dt.chunk_dest.shape[0]),
                            n_split=int(dt.split_run.shape[0]),

@@ -3,7 +3,9 @@
 # directly.  graph.py builds/normalizes adjacencies (host side, numpy),
 # aggregate.py wraps the SpMM combine monoids (sum/mean/max) as
 # aggregation closures over staged tiles or served plans, and
-# layers_gnn.py composes them into GCN / GraphSAGE forwards.
+# layers_gnn.py composes them into GCN / GraphSAGE forwards, and train/
+# trains them (sampling, losses, the trainer) through the differentiable
+# aggregators.
 from .aggregate import (
     AGGREGATIONS,
     aggregate,
@@ -30,6 +32,7 @@ from .layers_gnn import (
     gcn_layer,
     init_gcn,
     init_sage,
+    params_from_arrays,
     sage_forward,
     sage_layer,
 )
@@ -54,6 +57,7 @@ __all__ = [
     "GraphSAGE",
     "init_gcn",
     "init_sage",
+    "params_from_arrays",
     "gcn_layer",
     "gcn_forward",
     "sage_layer",

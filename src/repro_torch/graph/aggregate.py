@@ -20,9 +20,10 @@ MatrixRegistry`.  Entry points run on the card unless the caller passes
 kernels on a card, the ``"stable"`` chain on the CPU), as the registry's
 does.
 
-The differentiable aggregators (``make_diff_aggregator``,
-``plan_diff_aggregator``) belong to the training slice of the port and
-raise ``NotImplementedError`` until it lands.
+:func:`make_diff_aggregator` and :func:`plan_diff_aggregator` are their
+differentiable twins (:mod:`repro_torch.kernels.autodiff`): the sum and
+mean backward is one SpMM over the transpose tiles, the max backward a
+scatter to the winners the forward's argmax SpMM saved.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.tile import HBPTiles, build_tiles, tuned_partition_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import autodiff, ops
+from repro_torch.kernels.autodiff import mean_divisor
 
 from .graph import degrees
 
@@ -48,12 +50,6 @@ __all__ = [
 
 AGGREGATIONS = ("sum", "mean", "max")
 
-_DEFERRED_DIFF = (
-    "differentiable aggregation belongs to the training slice of the port, "
-    "not ported yet: ROADMAP queue 1, item 6"
-)
-
-
 def _check_op(op: str) -> None:
     if op not in AGGREGATIONS:
         raise ValueError(f"unknown aggregation {op!r} (expected one of {AGGREGATIONS})")
@@ -63,13 +59,6 @@ def _strategy(strategy: Optional[str], device: torch.device) -> str:
     if strategy is None:
         return "fused" if device.type == "cuda" else "stable"
     return strategy
-
-
-def mean_divisor(degree, n_rows: int, device) -> torch.Tensor:
-    """``[n, 1]`` clamped in-degree on ``device``: the mean over an empty
-    neighborhood is 0."""
-    d = torch.as_tensor(degree, dtype=torch.float32).reshape(n_rows, 1)
-    return d.clamp(min=1.0).to(device)
 
 
 def aggregate(
@@ -117,7 +106,9 @@ def make_aggregator(
     nnz-profile-tuned geometry unless ``cfg`` pins one) or prebuilt
     :class:`HBPTiles`.  For ``op="mean"`` the degree vector defaults to
     the structural in-degree of the CSR input (it must be passed for
-    tiles).  Every call launches on the staged tiles.
+    tiles).  Every call launches on the staged tiles.  The kernel
+    strategies record no autograd graph: an x that requires grad raises
+    under grad mode; train through :func:`make_diff_aggregator`.
     """
     _check_op(op)
     if isinstance(adj, CSRMatrix):
@@ -142,10 +133,46 @@ def make_aggregator(
     return agg
 
 
-def make_diff_aggregator(adj, **kwargs) -> Callable:
-    """Differentiable twin of :func:`make_aggregator` — the training
-    slice's, not ported yet."""
-    raise NotImplementedError(_DEFERRED_DIFF)
+def make_diff_aggregator(
+    adj,  # CSRMatrix | kernels.autodiff.PairedTiles
+    *,
+    op: str = "sum",
+    degree=None,
+    cfg=None,
+    cfg_T=None,
+    strategy: Optional[str] = None,
+    mode: str = "vjp",
+    device=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Differentiable twin of :func:`make_aggregator`.
+
+    The returned closure supports autograd without recording the kernels:
+    the sum and mean backward is one HBP SpMM against the transpose
+    adjacency (built here as a paired tile set, see
+    :func:`repro_torch.kernels.autodiff.hbp_transpose`), the max backward
+    routes cotangents to the argmax neighbor saved during the forward.
+    ``adj`` is the CSR adjacency or a prebuilt
+    :class:`~repro_torch.kernels.autodiff.PairedTiles`; for ``op="mean"``
+    the degree defaults to the structural in-degree of the CSR input (pass
+    ``degree=`` for prebuilt pairs).  For served graphs prefer
+    :func:`plan_diff_aggregator` over a registry plan pair.
+    """
+    _check_op(op)
+    if isinstance(adj, CSRMatrix):
+        if op == "mean" and degree is None:
+            degree = degrees(adj)
+        if autodiff.needs_transpose(op, mode):
+            pair = autodiff.hbp_transpose(adj, cfg, cfg_T)
+        else:  # max and jvp never launch the transpose: skip its build
+            tiles = build_tiles(adj, cfg or tuned_partition_config(adj))
+            pair = autodiff.PairedTiles(tiles, None)
+    else:
+        pair = autodiff.PairedTiles(*adj)
+        if op == "mean" and degree is None:
+            raise ValueError("op='mean' over prebuilt tiles needs degree=")
+    return autodiff.diff_aggregator(
+        pair, op=op, degree=degree, strategy=strategy, mode=mode, device=device
+    )
 
 
 def plan_aggregator(plan, *, op: str = "sum", bucketed: bool = True) -> Callable:
@@ -156,13 +183,22 @@ def plan_aggregator(plan, *, op: str = "sum", bucketed: bool = True) -> Callable
     content hashing and the autotune cache make re-admission free — and
     every GNN layer call reuses its device tiles, autotuned geometry and
     strategy.  ``op`` follows :data:`AGGREGATIONS`; mean uses the
-    in-degree the plan captured at admission.
+    in-degree the plan captured at admission.  Like
+    :func:`make_aggregator` it is not differentiable on the kernel
+    strategies; train through :func:`plan_diff_aggregator`.
     """
     _check_op(op)
     return lambda x: plan.aggregate(x, op=op, bucketed=bucketed)
 
 
 def plan_diff_aggregator(plan, *, op: str = "sum", mode: str = "vjp") -> Callable:
-    """Differentiable aggregator over a registry plan pair — the training
-    slice's, not ported yet."""
-    raise NotImplementedError(_DEFERRED_DIFF)
+    """Differentiable aggregator over a registry-resident plan pair.
+
+    The training-side sibling of :func:`plan_aggregator`: admit the
+    adjacency with :meth:`~repro_torch.serving.registry.MatrixRegistry.
+    admit_pair` (A and Aᵀ built together, linked by content hash) and the
+    closure's backward launches the linked transpose plan's tiles.  Mean
+    uses the in-degree the plan captured at admission.
+    """
+    _check_op(op)
+    return plan.diff_aggregator(op=op, mode=mode)

@@ -18,9 +18,13 @@ from an explicit ``torch.Generator`` or loaded from carried-over weights.
   self-loop) adjacency — max exercises the kernels' max monoid.
 
 The dense transforms are plain ``torch.matmul`` (float32, TF32 off by
-PyTorch's default).  The modules serve inference: their parameters do not
-require gradients, because the aggregators are not differentiable until
-the training slice of the port brings the autograd functions.
+PyTorch's default).  Everything takes gradients: the modules' parameters
+are trainable, and the functional forwards over parameter lists
+differentiate through any aggregator from
+:func:`~repro_torch.graph.aggregate.make_diff_aggregator` or
+:func:`~repro_torch.graph.aggregate.plan_diff_aggregator` (whose backward
+is the transpose SpMM, or the argmax scatter under max).
+:func:`params_from_arrays` carries weights in as such lists.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ __all__ = [
     "gcn_forward",
     "sage_layer",
     "sage_forward",
+    "params_from_arrays",
     "GCN",
     "GraphSAGE",
 ]
@@ -123,6 +128,21 @@ def sage_forward(
     return sage_layer(agg, params[-1], x, activation=None)
 
 
+def params_from_arrays(params: Sequence[tuple], kind, device=None) -> list:
+    """Carried-over weights as a parameter list: one tuple per layer in the
+    field order of ``kind`` (:class:`DenseParams` or :class:`SageParams`),
+    for example the JAX package's ``init_gcn`` / ``init_sage`` lists with
+    each field converted by ``np.asarray``; float32 tensors on ``device``.
+    """
+    out = []
+    for p in params:
+        if len(p) != len(kind._fields):
+            raise ValueError(f"expected fields {kind._fields}, got {len(p)} arrays")
+        out.append(kind(*(
+            torch.as_tensor(np.array(v, dtype=np.float32), device=device) for v in p)))
+    return out
+
+
 class _Stack(nn.Module):
     """A stack of layers whose parameters are the fields of ``_PARAMS``."""
 
@@ -134,7 +154,7 @@ class _Stack(nn.Module):
         for p in params:
             layer = nn.Module()
             for field, value in zip(self._PARAMS._fields, p):
-                setattr(layer, field, nn.Parameter(value, requires_grad=False))
+                setattr(layer, field, nn.Parameter(value))
             self.layers.append(layer)
 
     def params(self) -> list:

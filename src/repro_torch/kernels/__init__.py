@@ -1,10 +1,13 @@
 # The HBP SpMV/SpMM kernels for Hopper.  hbp_spmv.py holds the wrappers of
 # the hand-written CUDA kernels (csrc/*.cu, built at first use by build.py)
 # beside their plain PyTorch versions, ops.py the public entry points,
-# ref.py the plain references they are checked against.  As in the JAX
-# package, the name ``hbp_spmv`` here is the ops entry point; import the
-# kernel module's wrappers with ``from repro_torch.kernels.hbp_spmv import``.
-from . import ops, ref
+# ref.py the plain references they are checked against (and the argmax
+# SpMM), autodiff.py the autograd layer (backward = the transpose-tiles
+# SpMM).  As in the JAX package, the name ``hbp_spmv`` here is the ops
+# entry point; import the kernel module's wrappers with
+# ``from repro_torch.kernels.hbp_spmv import``.
+from . import autodiff, ops, ref
+from .autodiff import PairedTiles, diff_aggregator, hbp_transpose
 from .ops import (
     K_BUCKETS,
     K_CHUNK,
@@ -21,6 +24,7 @@ from .ops import (
 __all__ = [
     "ops",
     "ref",
+    "autodiff",
     "DeviceTiles",
     "device_tiles",
     "hbp_spmm",
@@ -31,4 +35,7 @@ __all__ = [
     "K_BUCKETS",
     "K_CHUNK",
     "K_TILINGS",
+    "PairedTiles",
+    "hbp_transpose",
+    "diff_aggregator",
 ]

@@ -46,6 +46,7 @@ _SIGNATURES = {
         "hbp_spmv_partials_launch": [_ptr] * 5 + [_int] * 11 + [_ptr],
         "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
         "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
+        "hbp_spmm_partials_max_runs_launch": [_ptr] * 12 + [_int] * 14 + [_ptr],
     },
 }
 

@@ -14,6 +14,10 @@
 // live slot, or a NaN accumulator, gives NaN, as jnp.max does: max_nan is
 // PTX max.NaN.f32, where fmaxf would return the other operand and drop
 // the NaN.  On operands that are not NaN the two give the same bits.
+// max.NaN.f32 ranks +0.0 above -0.0 in either order (IEEE's maximum, as
+// jnp.maximum does; the signed-zero probe of chip_smoke.py checks it on the
+// card), so no step or fold here depends on operand order for the sign of
+// a zero.
 // Slot (t, g, l) reads x row colblock[t] * col_block + cols[t, g, l] of
 // the row-major x [n_x, k], column c.
 //

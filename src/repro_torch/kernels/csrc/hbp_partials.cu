@@ -5,6 +5,8 @@
 //   hbp_spmv_partials_launch      <- _partials_kernel / hbp_spmv_partials
 //   hbp_spmm_partials_launch      <- _partials_spmm_kernel / hbp_spmm_partials
 //   hbp_spmm_partials_max_launch  <- _partials_spmm_max_kernel / hbp_spmm_partials_max
+// and hbp_spmm_partials_max_runs_launch, the same max kernel followed by
+// the run combine on the card (below).
 // Each computes, for every tile t, row g of its group and column c,
 //   partial[t, g, c] = (+ or max) over lanes l = 0 .. lane-1 (in order)
 //                      of data[t, g, l] * x[colblock[t] * col_block + cols[t, g, l], c]
@@ -54,6 +56,18 @@
 // 5-6 on that body gave the same bits and up to 2 % more device time on
 // m4_kron16 (H100 SXM, 700 W; scripts/time_fused.py, PERF.md), so the sum
 // keeps its own.
+//
+// The run combine of the max (the entry point's path).
+// torch.segment_reduce keeps the first of two equal operands, -0.0 before
+// +0.0 where IEEE's maximum (jnp.max) gives +0.0, so the plain version
+// (ref.segment_max_sorted) needs a second pass over the partials.
+// hbp_spmm_partials_max_runs_launch reads them once: after the max
+// kernel, hbp_chunk_fold_kernel folds each chunk of at most
+// ops.RUN_CHUNK tiles of a row-group run (the chunk index of the fused
+// kernels) with max_nan, which ranks +0.0 above -0.0 and carries NaN,
+// into y or the chunk buffer, and hbp_fold_kernel (hbp_rows.cuh) folds
+// the split runs' chunks.  The max is exact in any order, so y is
+// bitwise the plain segment max.
 
 #include "hbp_rows.cuh"
 
@@ -154,6 +168,46 @@ cudaError_t launch_sum(const float* data, const int* cols, const int* colblock,
 #undef HBP_WR
 }
 
+// Phase A of the run combine: chunk i's partial rows [chunk_start[i],
+// chunk_start[i + 1]) folded under Op in stream order into
+// y[chunk_dest[i]], or row ~chunk_dest[i] of the chunk buffer for a chunk
+// of a split run.  One thread per (chunk, g, W columns), the columns
+// fastest, so a warp reads consecutive bytes of each partial row: W = 4
+// reads float4s (group * k a multiple of 4, every pointer 16-byte
+// aligned), W = 1 scalars.  The partials are read once, so with streaming
+// loads (__ldcs).  n_out and per_item count units of W floats.
+template <class Op>
+__device__ __forceinline__ float fold_units(float a, float b) {
+  return Op::combine(a, b);
+}
+
+template <class Op>
+__device__ __forceinline__ float4 fold_units(float4 a, float4 b) {
+  return make_float4(Op::combine(a.x, b.x), Op::combine(a.y, b.y), Op::combine(a.z, b.z),
+                     Op::combine(a.w, b.w));
+}
+
+template <class Op, class V>
+__global__ void __launch_bounds__(kThreads) hbp_chunk_fold_kernel(
+    const int* __restrict__ chunk_start, const int* __restrict__ chunk_dest,
+    const V* __restrict__ partial, V* __restrict__ buf, V* __restrict__ y, int64_t n_out,
+    int64_t per_item) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n_out) return;
+  const int64_t i = e / per_item;
+  const int64_t rem = e - i * per_item;
+  const int t0 = __ldg(chunk_start + i);
+  const int n = __ldg(chunk_start + i + 1) - t0;
+  const V* __restrict__ p = partial + static_cast<int64_t>(t0) * per_item + rem;
+  V acc = __ldcs(p);
+#pragma unroll 8
+  for (int j = 1; j < n; ++j) acc = fold_units<Op>(acc, __ldcs(p + j * per_item));
+  const int dest = __ldg(chunk_dest + i);
+  V* out = dest >= 0 ? y + static_cast<int64_t>(dest) * per_item
+                     : buf + static_cast<int64_t>(~dest) * per_item;
+  out[rem] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -192,6 +246,48 @@ int hbp_spmm_partials_max_launch(const float* data, const int* cols,
   return static_cast<int>(hbp::launch_rows<hbp::MaxOp, false>(
       data, cols, colblock, nullptr, nullptr, x, partial, nullptr, n_tiles, group, lane,
       col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream));
+}
+
+// The partials max and its run combine in one call: partial as for
+// hbp_spmm_partials_max_launch (uninitialised, n_tiles rows), buf
+// f32[n_split_chunks, group, k] uninitialised, y f32[n_rowgroups, group, k]
+// filled with -inf by the caller (row groups with no tiles keep it).
+int hbp_spmm_partials_max_runs_launch(
+    const float* data, const int* cols, const int* colblock, const int* chunk_start,
+    const int* chunk_dest, const int* run_chunk, const int* split_run,
+    const int* run_rowgroup, const float* x, float* partial, float* buf, float* y,
+    int n_tiles, int n_chunks, int n_split, int group, int lane, int col_block, int k,
+    int width, int rows, int slab, int block, int grid_x, int grid_y, int device,
+    void* stream) {
+  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks || n_chunks > n_tiles || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_item = static_cast<int64_t>(group) * k;
+  const bool vec = per_item % 4 == 0 && hbp::aligned16(partial) && hbp::aligned16(buf) &&
+                   hbp::aligned16(y);
+  const int64_t units = vec ? per_item / 4 : per_item;
+  dim3 chunk_grid, fold_grid;
+  cudaError_t err = hbp::grid_for(n_chunks * units, &chunk_grid);
+  if (err == cudaSuccess) err = hbp::grid_for(n_split * per_item, &fold_grid);
+  if (err == cudaSuccess)
+    err = hbp::launch_rows<hbp::MaxOp, false>(
+        data, cols, colblock, nullptr, nullptr, x, partial, nullptr, n_tiles, group, lane,
+        col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream);
+  if (err != cudaSuccess || n_chunks == 0) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    hbp_chunk_fold_kernel<hbp::MaxOp, float4><<<chunk_grid, kThreads, 0, s>>>(
+        chunk_start, chunk_dest, reinterpret_cast<const float4*>(partial),
+        reinterpret_cast<float4*>(buf), reinterpret_cast<float4*>(y), n_chunks * units,
+        units);
+  } else {
+    hbp_chunk_fold_kernel<hbp::MaxOp, float><<<chunk_grid, kThreads, 0, s>>>(
+        chunk_start, chunk_dest, partial, buf, y, n_chunks * units, units);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return static_cast<int>(err);
+  hbp::hbp_fold_kernel<false, hbp::MaxOp><<<fold_grid, kThreads, 0, s>>>(
+      run_chunk, split_run, chunk_dest, run_rowgroup, buf, y, n_split * per_item, group, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

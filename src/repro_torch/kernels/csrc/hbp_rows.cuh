@@ -258,4 +258,32 @@ cudaError_t launch_rows(const float* data, const int* cols, const int* colblock,
 #undef HBP_WR
 }
 
+// Phase B of the chunked launches (the fused kernels of hbp_spmv.cu and
+// the partials max with its run combine, hbp_partials.cu): y[rg, g, c] of
+// each split run is the left fold under Op of its chunk partials in chunk
+// order.  The run's chunk-buffer rows are consecutive, from
+// ~chunk_dest[first chunk].
+template <bool K1, class Op>
+__global__ void __launch_bounds__(kThreads) hbp_fold_kernel(
+    const int* __restrict__ run_chunk, const int* __restrict__ split_run,
+    const int* __restrict__ chunk_dest, const int* __restrict__ run_rowgroup,
+    const float* __restrict__ partial, float* __restrict__ y, int64_t n_out,
+    int group, int k_rt) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n_out) return;
+  const int k = K1 ? 1 : k_rt;
+  const int64_t per_run = static_cast<int64_t>(group) * k;
+  const int64_t s = e / per_run;
+  const int rem = static_cast<int>(e - s * per_run);
+  const int r = __ldg(split_run + s);
+  const int c0 = __ldg(run_chunk + r);
+  const int n = __ldg(run_chunk + r + 1) - c0;
+  const float* __restrict__ p =
+      partial + static_cast<int64_t>(~__ldg(chunk_dest + c0)) * per_run + rem;
+  float acc = __ldg(p);
+#pragma unroll 8
+  for (int j = 1; j < n; ++j) acc = Op::combine(acc, __ldg(p + j * per_run));
+  y[static_cast<int64_t>(__ldg(run_rowgroup + r)) * per_run + rem] = acc;
+}
+
 }  // namespace hbp

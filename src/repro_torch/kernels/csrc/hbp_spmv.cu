@@ -29,9 +29,9 @@
 //        run of one chunk writes y directly, a chunk of a split run writes
 //        its row of the chunk buffer partial[n_split_chunks, group, k]
 //        (allocated by the caller, uninitialised);
-//     B. hbp_fold_kernel: one thread per (split run, g, c) left-folds the
-//        run's chunk partials in chunk order into y (__fadd_rn, or the
-//        NaN-carrying max).
+//     B. hbp_fold_kernel (hbp_rows.cuh): one thread per (split run, g, c)
+//        left-folds the run's chunk partials in chunk order into y
+//        (__fadd_rn, or the NaN-carrying max).
 //   A is hbp_chunk_kernel for the sum (one thread per (chunk, g, c)) and
 //   the tile-row kernel of hbp_rows.cuh for the max (kernel 3): a
 //   chunk's threads are (row block, column unit), R rows and 4 columns
@@ -112,32 +112,6 @@ __global__ void __launch_bounds__(kThreads) hbp_chunk_kernel(
   out[rem] = acc;
 }
 
-// Phase B: y[rg, g, c] of each split run is the left fold under Op of its
-// chunk partials in chunk order.  The run's chunk-buffer rows are
-// consecutive, from ~chunk_dest[first chunk].
-template <bool K1, class Op>
-__global__ void __launch_bounds__(kThreads) hbp_fold_kernel(
-    const int* __restrict__ run_chunk, const int* __restrict__ split_run,
-    const int* __restrict__ chunk_dest, const int* __restrict__ run_rowgroup,
-    const float* __restrict__ partial, float* __restrict__ y, int64_t n_out,
-    int group, int k_rt) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_out) return;
-  const int k = K1 ? 1 : k_rt;
-  const int64_t per_run = static_cast<int64_t>(group) * k;
-  const int64_t s = e / per_run;
-  const int rem = static_cast<int>(e - s * per_run);
-  const int r = __ldg(split_run + s);
-  const int c0 = __ldg(run_chunk + r);
-  const int n = __ldg(run_chunk + r + 1) - c0;
-  const float* __restrict__ p =
-      partial + static_cast<int64_t>(~__ldg(chunk_dest + c0)) * per_run + rem;
-  float acc = __ldg(p);
-#pragma unroll 8
-  for (int j = 1; j < n; ++j) acc = Op::combine(acc, __ldg(p + j * per_run));
-  y[static_cast<int64_t>(__ldg(run_rowgroup + r)) * per_run + rem] = acc;
-}
-
 template <bool K1>
 int launch_sum(const float* data, const int* cols, const int* colblock,
                const int* chunk_start, const int* chunk_dest, const int* run_chunk,
@@ -163,7 +137,7 @@ int launch_sum(const float* data, const int* cols, const int* colblock,
 #undef HBP_LAUNCH
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
-  hbp_fold_kernel<K1, hbp::SumOp><<<fold_grid, kThreads, 0, s>>>(
+  hbp::hbp_fold_kernel<K1, hbp::SumOp><<<fold_grid, kThreads, 0, s>>>(
       run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -219,8 +193,8 @@ int hbp_spmm_fused_max_launch(const float* data, const int* cols, const int* col
         data, cols, colblock, chunk_start, chunk_dest, x, partial, y, n_chunks, group, lane,
         col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream);
   if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
-  hbp_fold_kernel<false, hbp::MaxOp><<<fold_grid, kThreads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
+  hbp::hbp_fold_kernel<false, hbp::MaxOp><<<fold_grid, kThreads, 0,
+                                            static_cast<cudaStream_t>(stream)>>>(
       run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,9 @@ group's run of tiles to the caller (``ops``):
 * :func:`hbp_spmm_partials` (replaces ``_partials_spmm_kernel`` /
   ``hbp_spmm_partials``);
 * :func:`hbp_spmm_partials_max` (replaces ``_partials_spmm_max_kernel`` /
-  ``hbp_spmm_partials_max``), ``-inf`` where a tile row has no live slot.
+  ``hbp_spmm_partials_max``), ``-inf`` where a tile row has no live slot;
+  with ``runs=True`` the same launch call also folds each row group's run
+  of partials on the card, which the entry point uses.
 
 All three give each tile up to two warps of one block, in the launch
 geometry of :func:`partials_geometry`: its vector path (16-byte column
@@ -48,7 +50,11 @@ On a CUDA tensor a wrapper launches its kernel (the sources' header notes
 give the design and what bounds it) or raises; on a CPU tensor it runs the
 plain PyTorch version beside it.  Nothing falls back from one to the
 other.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``launches``.
+attribute, ``launches``.  No wrapper records an autograd graph: given an
+x that requires grad while grad mode is on, each raises on either device
+(the JAX package refuses to differentiate ``pallas_call`` too); training
+goes through :mod:`repro_torch.kernels.autodiff`, whose backward is one
+more launch on the transpose tiles.
 
 Slot ``(t, g, l)`` reads x row ``colblock[t] * col_block + cols[t, g, l]``.
 Tile packing only emits tiles of column blocks that hold entries, so
@@ -123,10 +129,15 @@ def hbp_spmv_partials_plain(dt, x: torch.Tensor) -> torch.Tensor:
     return hbp_spmm_partials_plain(dt, x[:, None])[..., 0]
 
 
-def hbp_spmm_partials_max_plain(dt, x: torch.Tensor) -> torch.Tensor:
+def hbp_spmm_partials_max_plain(dt, x: torch.Tensor, *, runs: bool = False) -> torch.Tensor:
     """Plain version of the partials max SpMM: each tile row's masked lane
-    max ``[n_tiles, group, k]``, equal to the kernel bitwise."""
-    return _ref.lane_max(dt.colblock, dt.data, dt.cols, x, dt.col_block)
+    max ``[n_tiles, group, k]``, equal to the kernel bitwise; with ``runs``
+    also the max over each row group's run (:func:`ref.segment_max_sorted`),
+    ``[n_rowgroups, group, k]``."""
+    contrib = _ref.lane_max(dt.colblock, dt.data, dt.cols, x, dt.col_block)
+    if runs:
+        return _ref.segment_max_sorted(contrib, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)
+    return contrib
 
 
 def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
@@ -142,6 +153,15 @@ def _check(dt, x: torch.Tensor, ndim: int, name: str) -> None:
         raise ValueError(f"{name}: x is on {x.device}, the tiles on {dt.data.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.requires_grad and torch.is_grad_enabled():
+        # the kernel writes its output with no autograd graph; the plain
+        # version stands for it on the CPU and refuses the same way
+        raise RuntimeError(
+            f"{name}: the kernel records no autograd graph, and x requires grad; "
+            "differentiate through repro_torch.graph.make_diff_aggregator or "
+            "plan_diff_aggregator (repro_torch.kernels.autodiff), whose backward "
+            "launches the kernels on the transpose tiles, or call under torch.no_grad()"
+        )
 
 
 def _launch(lib: str, fn_name: str, tensors, dt, x: torch.Tensor, counts, *tail: int) -> None:
@@ -373,14 +393,40 @@ def hbp_spmm_partials(dt, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def hbp_spmm_partials_max(dt, x: torch.Tensor) -> torch.Tensor:
+def hbp_spmm_partials_max(dt, x: torch.Tensor, *, runs: bool = False) -> torch.Tensor:
     """Partials HBP SpMM under the max monoid: each tile row's masked lane
-    max, ``[n_tiles, group, k]``, ``-inf`` where it has no live slot."""
+    max, ``[n_tiles, group, k]``, ``-inf`` where it has no live slot.
+
+    ``runs=True`` (the entry point's path) also combines each row group's
+    run of partials on the card in the same launch call: hashed row order
+    ``[n_rowgroups, group, k]``, ``-inf`` where a row has no live entry, as
+    :func:`hbp_spmm_fused_max` gives; the partials buffer stays internal.
+    """
     _check(dt, x, 2, "hbp_spmm_partials_max")
     if x.device.type == "cpu":
-        return hbp_spmm_partials_max_plain(dt, x)
+        return hbp_spmm_partials_max_plain(dt, x, runs=runs)
     k = x.shape[1]
     out = _partials_out(dt, x, k)
+    if runs:
+        group = dt.data.shape[1]
+        y = torch.full(
+            (dt.n_rowgroups, group, k), float("-inf"), dtype=torch.float32, device=x.device
+        )
+        if dt.n_tiles == 0 or k == 0:
+            return y
+        buf = torch.empty(
+            (dt.n_split_chunks, group, k), dtype=torch.float32, device=x.device
+        )
+        g = _default_geometry(dt, dt.n_tiles, k, (x, out))
+        tensors = (
+            dt.data, dt.cols, dt.colblock, dt.chunk_start, dt.chunk_dest, dt.run_chunk,
+            dt.split_run, dt.run_rowgroup, x, out, buf, y,
+        )
+        counts = (dt.n_tiles, dt.chunk_dest.shape[0], dt.split_run.shape[0])
+        _launch("hbp_partials", "hbp_spmm_partials_max_runs_launch", tensors, dt, x,
+                counts, k, *g.launch_args)
+        hbp_spmm_partials_max.launches += 1
+        return y
     if dt.n_tiles == 0 or k == 0:
         return out
     _partials_launch("hbp_spmm_partials_max_launch", dt, x, out, k)

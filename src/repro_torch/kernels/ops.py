@@ -9,15 +9,17 @@ hash permutation:
   CPU);
 * ``"partials"`` — the paper's two-phase split: the hand-written partials
   kernels of :mod:`.hbp_spmv` write one partial block per tile, then a
-  deterministic segment sum (or max) over each row group's run combines
-  them;
+  deterministic segment sum over each row group's run combines them (the
+  max: a combine kernel in the same launch call as the partials);
 * ``"stable"`` — the ordered lane chain of :mod:`.ref`, whose results are
   bitwise invariant to batch width and bucket padding on every device;
 * ``"reference"`` — the einsum oracle of :mod:`.ref`.
 
 ``hbp_spmm(..., combine="max")`` runs the max monoid of GNN max
 aggregation on every strategy (the fused or partials max kernels, or the
-masked lane max of :mod:`.ref` under ``"stable"``/``"reference"``).
+masked lane max of :mod:`.ref` under ``"stable"``/``"reference"``), and
+``hbp_spmm_argmax`` the same max with its winners (the forward of max
+aggregation's gradient, torch code as in the JAX package).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card present they raise rather than fall back.
@@ -83,13 +85,6 @@ RUN_CHUNK = 32
 STRATEGIES = ("fused", "partials", "stable", "reference")
 
 COMBINES = ("sum", "max")
-
-# not yet ported: raises NotImplementedError naming its ROADMAP item
-_DEFERRED_ARGMAX = (
-    "hbp_spmm_argmax (the max SpMM with winner tracking) belongs to the "
-    "training slice of the port, not ported yet: ROADMAP queue 1, item 6"
-)
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceTiles:
@@ -307,15 +302,19 @@ def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) 
 
 
 def _record_launch(
-    dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling: str, combine: str = "sum"
+    dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling: str, combine: str = "sum",
+    passes: Optional[int] = None,
 ) -> None:
-    """Gated kernel-traffic accounting: one bump per entry-point call."""
+    """Gated kernel-traffic accounting: one bump per entry-point call.
+    ``passes`` overrides the tile-stream passes of the call (the argmax's
+    one or three)."""
     if not obs.enabled():
         return
     obs.counter(
         "kernels.launches", op=op, strategy=strategy, k_tiling=k_tiling, combine=combine
     ).inc()
-    obs.counter("kernels.traversals").inc(stream_passes(k, strategy, k_tiling))
+    n_passes = stream_passes(k, strategy, k_tiling) if passes is None else passes
+    obs.counter("kernels.traversals").inc(n_passes)
     obs.counter("kernels.bytes_modeled").inc(
         modeled_launch_bytes(dt, k, strategy, k_tiling))
     obs.counter("kernels.k_tiling", choice=k_tiling).inc()
@@ -420,9 +419,8 @@ def _spmm_hashed(dt: DeviceTiles, x: torch.Tensor, strategy: str, combine: str) 
         if strategy == "fused":
             return _k.hbp_spmm_fused_max(dt, x)
         if strategy == "partials":
-            return _ref.segment_max_sorted(
-                _k.hbp_spmm_partials_max(dt, x), dt.rowgroup, dt.n_rowgroups, dt.rg_lengths
-            )
+            # kernel 4 and its run combine in one launch call
+            return _k.hbp_spmm_partials_max(dt, x, runs=True)
         # max is exact in any order: the masked lane max is "stable" and
         # "reference" at once
         return _ref.hbp_spmm_hashed_max(
@@ -531,7 +529,53 @@ def hbp_spmm_bucketed(
     return hbp_spmm(tiles, x, **kwargs)[:, :k]
 
 
-def hbp_spmm_argmax(*args, **kwargs):
-    """Max-monoid SpMM with winner tracking — the training slice's, not
-    ported yet."""
-    raise NotImplementedError(_DEFERRED_ARGMAX)
+def hbp_spmm_argmax(
+    tiles: HBPTiles | DeviceTiles,
+    x,  # [n_cols, k]
+    *,
+    n_rowgroups: Optional[int] = None,
+    n_rows: Optional[int] = None,
+    col_block: Optional[int] = None,
+    passes: Literal[1, 3] = 1,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Max-monoid SpMM with winner tracking: ``(y, idx, coeff)``, each
+    ``[n_rows, k]``.
+
+    ``y`` is ``hbp_spmm(..., combine="max")``'s result, bit for bit;
+    ``idx[i, c]`` (int32) is the global source column whose stored entry
+    attained the max (ties to the lowest column, ``-1`` for rows with no
+    live entry) and ``coeff[i, c]`` that entry's value (0 where ``idx`` is
+    -1).  The forward of differentiable max aggregation
+    (:mod:`.autodiff`): the backward scatters ``coeff * cotangent`` to row
+    ``idx`` of the input.
+
+    As in the JAX package this is not a TPU kernel: the reduction is the
+    monoid-exact lane chain of :mod:`.ref` in torch code, on the device
+    the tiles are staged on.  ``passes=1`` (default) carries a paired
+    (value, index, coefficient) payload through one pass over the tile
+    stream (:func:`.ref.hbp_spmm_hashed_argmax_onepass`); ``passes=3`` is
+    the three-pass oracle (:func:`.ref.hbp_spmm_hashed_argmax`).  Both
+    give the same triple.
+    """
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes!r}")
+    dt, x = _resolve(tiles, x, device, n_rowgroups, n_rows, col_block)
+    if x.dim() != 2:
+        raise ValueError(f"X must be [n_cols, k], got shape {tuple(x.shape)}")
+    k = x.shape[1]
+    _record_launch(dt, k, op="spmm_argmax", strategy="stable", k_tiling="grid",
+                   combine="max", passes=passes)
+    n = dt.shape[0]
+    if dt.n_tiles == 0:  # no tiles: every row is empty
+        return (torch.zeros((n, k), dtype=torch.float32, device=dt.device),
+                torch.full((n, k), -1, dtype=torch.int32, device=dt.device),
+                torch.zeros((n, k), dtype=torch.float32, device=dt.device))
+    fn = _ref.hbp_spmm_hashed_argmax_onepass if passes == 1 else _ref.hbp_spmm_hashed_argmax
+    y_h, idx_h, coeff_h = fn(
+        dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_matrix(x.contiguous(), dt.col_block),
+        n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
+    )
+    y_h = y_h.masked_fill_(torch.isneginf(y_h), 0.0)  # empty rows aggregate to 0
+    return (_ref.unpermute(y_h, dt.perm, n), _ref.unpermute(idx_h, dt.perm, n),
+            _ref.unpermute(coeff_h, dt.perm, n))

@@ -2,8 +2,15 @@
 
 Torch counterparts of the JAX package's jnp oracles (``repro.kernels.ref``):
 the einsum reference, the batch-width-invariant ``"stable"`` lane chain,
-the max-monoid lane chain, and the hash-order ``unpermute``.  They run on
+the max-monoid lane chain, the argmax SpMM (the forward of max
+aggregation's gradient) and the hash-order ``unpermute``.  They run on
 any device.
+
+The max monoid is IEEE's maximum, as ``jnp.maximum`` is: NaN wins, and
+``+0.0`` ranks above ``-0.0`` whatever their order (:func:`ieee_max`).
+``torch.maximum`` on the CPU and ``torch.segment_reduce(..., "max")`` on
+every device keep the first of two equal operands instead, so the max
+steps here never rely on them for the sign of a zero.
 
 The row-group combine never uses ``index_add_``/``scatter_add_``: on CUDA
 those are atomic, so their summation order — and the result's bits —
@@ -21,6 +28,7 @@ import torch
 __all__ = [
     "segment_sum_sorted",
     "segment_max_sorted",
+    "ieee_max",
     "tile_contrib_ref",
     "hbp_spmv_hashed_ref",
     "tile_contrib_spmm_ref",
@@ -31,6 +39,8 @@ __all__ = [
     "lane_max",
     "tile_contrib_spmm_max",
     "hbp_spmm_hashed_max",
+    "hbp_spmm_hashed_argmax",
+    "hbp_spmm_hashed_argmax_onepass",
     "unpermute",
 ]
 
@@ -75,15 +85,60 @@ def segment_max_sorted(
 
     The max is exact in any order; groups with no tiles come out ``-inf``
     (the monoid's identity, passed explicitly as the reduction's initial
-    value), for the caller to map to 0 after assembly.
+    value), for the caller to map to 0 after assembly.  NaN wins, and a
+    run whose max is a zero gives ``+0.0`` if any of its elements is
+    ``+0.0``: ``segment_reduce`` keeps the first of two equal operands, so
+    a second, narrow pass finds the runs that hold a ``+0.0``.  The plain
+    version of the run combine; on the card the partials max entry point
+    combines in a kernel (``hbp_spmm_partials_max(runs=True)``).
     """
     checked = lengths is not None
     lengths = _run_lengths(rowgroup, n_rowgroups, lengths)
     if contrib.shape[0] == 0:
         return contrib.new_full((n_rowgroups,) + tuple(contrib.shape[1:]), float("-inf"))
-    return torch.segment_reduce(
+    y = torch.segment_reduce(
         contrib, "max", lengths=lengths, axis=0, unsafe=checked, initial=float("-inf")
     )
+    # +0.0 is the one float whose bits are all zero
+    pos_zero = (contrib.view(torch.int32) == 0).to(torch.float16)
+    has_pos_zero = torch.segment_reduce(
+        pos_zero, "max", lengths=lengths, axis=0, unsafe=checked, initial=0.0
+    )
+    return y.masked_fill_((has_pos_zero > 0) & (y == 0), 0.0)
+
+
+def _segment_int(
+    values: torch.Tensor,  # i32[T, ...], sorted by row group
+    reduce: str,  # "max" or "min"
+    rowgroup: torch.Tensor,
+    n_rowgroups: int,
+    fill: int,  # the result of a group with no tiles
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Segment max or min of int32 ``values`` over row-group runs ->
+    i32 ``[n_rowgroups, ...]``.  ``segment_reduce`` takes floating types
+    only; float64 holds every int32 exactly, so the reduction runs there.
+    """
+    checked = lengths is not None
+    lengths = _run_lengths(rowgroup, n_rowgroups, lengths)
+    if values.shape[0] == 0:
+        return values.new_full((n_rowgroups,) + tuple(values.shape[1:]), fill)
+    out = torch.segment_reduce(
+        values.double(), reduce, lengths=lengths, axis=0, unsafe=checked, initial=float(fill)
+    )
+    return out.to(torch.int32)
+
+
+def ieee_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IEEE maximum: NaN if either operand is NaN, and
+    ``+0.0`` above ``-0.0`` in either order (``jnp.maximum``'s semantics).
+
+    Equal operands that are not zeros have the same bits, and the AND of
+    ``+0.0``'s and ``-0.0``'s bits is ``+0.0``'s, so where ``a == b`` the
+    AND of the bit patterns is the maximum.
+    """
+    tie = (a.view(torch.int32) & b.view(torch.int32)).view(a.dtype)
+    return torch.where(a == b, tie, torch.maximum(a, b))
 
 
 def _gather(x_flat, colblock, cols, col_block):
@@ -188,7 +243,8 @@ def lane_max(
     explicitly stored zeros are masked to ``-inf`` (the identity of
     ``max``) instead of contributing ``0 * x = 0``, which would beat every
     all-negative row.  ``max`` is exact, so this one chain is the plain
-    version, the ``"stable"``/``"reference"`` path and the oracle at once.
+    version, the ``"stable"``/``"reference"`` path and the oracle at once;
+    each step is :func:`ieee_max`.
     """
     base = colblock.long()[:, None] * col_block  # [T, 1]
     cols = cols.long()
@@ -200,7 +256,7 @@ def lane_max(
 
     acc = term(0)
     for lane in range(1, data.shape[2]):
-        acc = torch.maximum(acc, term(lane))
+        acc = ieee_max(acc, term(lane))
     return acc
 
 
@@ -222,6 +278,119 @@ def hbp_spmm_hashed_max(
     the monoid's identity, for the caller to map to 0."""
     contrib = tile_contrib_spmm_max(colblock, data, cols, x_blocked)
     return segment_max_sorted(contrib, rowgroup, n_rowgroups, lengths)
+
+
+_INT_MAX = torch.iinfo(torch.int32).max
+_INT_MIN = torch.iinfo(torch.int32).min
+
+
+def _slot(colblock, data, cols, x_flat, col_block, lane):
+    """Lane ``lane`` of every tile row: its stored value ``d`` ``[T, group,
+    1]``, its global column (i32 ``[T, group, 1]``) and ``d * x``
+    ``[T, group, k]``."""
+    d = data[:, :, lane, None]
+    gcol = colblock.long()[:, None] * col_block + cols[:, :, lane].long()
+    return d, gcol[..., None].to(torch.int32), d * x_flat[gcol]
+
+
+def hbp_spmm_hashed_argmax(
+    rowgroup, colblock, data, cols, x_blocked, *, n_rowgroups: int, lengths=None
+):
+    """Max-monoid SpMM that also reports which stored entry won, by three
+    passes over the tile stream: ``(y, idx, coeff)``, each
+    ``[n_rowgroups, group, k]`` in hashed row order.
+
+    * ``y`` — :func:`hbp_spmm_hashed_max` (``-inf`` where a row has no
+      live entry);
+    * ``idx`` — the global column of the winning stored entry, ties to the
+      lowest column (``-1`` where the row has none);
+    * ``coeff`` — that entry's stored value (0 where the row has none).
+
+    Pass 2 reduces ``-column`` under the max over the slots whose product
+    attained ``y``, pass 3 reads the winner's coefficient.  The
+    equivalence oracle of :func:`hbp_spmm_hashed_argmax_onepass`.
+    """
+    n_cb, col_block, k = x_blocked.shape
+    x_flat = x_blocked.reshape(n_cb * col_block, k)
+    y = hbp_spmm_hashed_max(
+        rowgroup, colblock, data, cols, x_blocked, n_rowgroups=n_rowgroups, lengths=lengths
+    )
+    rg = rowgroup.long()
+    y_t = y[rg]  # [T, group, k]: each tile's target row values
+
+    # pass 2: the lowest winning global column, as a max of the negated id
+    acc = None
+    for lane in range(data.shape[2]):
+        d, gcol, prod = _slot(colblock, data, cols, x_flat, col_block, lane)
+        win = (d != 0) & (prod == y_t)
+        term = torch.where(win, -gcol, _INT_MIN)
+        acc = term if acc is None else torch.maximum(acc, term)
+    neg_idx = _segment_int(acc, "max", rowgroup, n_rowgroups, _INT_MIN, lengths)
+    live = neg_idx > _INT_MIN  # also False for row groups with no tiles
+    idx = torch.where(live, -neg_idx, -1)
+
+    # pass 3: the winner's stored coefficient (one per (row, column))
+    idx_t = idx[rg]
+    neg = torch.tensor(float("-inf"), dtype=data.dtype, device=data.device)
+    acc_c = None
+    for lane in range(data.shape[2]):
+        d = data[:, :, lane, None]
+        gcol = (colblock.long()[:, None] * col_block + cols[:, :, lane].long())[..., None]
+        term = torch.where((d != 0) & (gcol == idx_t), d.expand(idx_t.shape), neg)
+        acc_c = term if acc_c is None else ieee_max(acc_c, term)
+    coeff = segment_max_sorted(acc_c, rowgroup, n_rowgroups, lengths)
+    return y, idx, torch.where(live, coeff, 0.0)
+
+
+def hbp_spmm_hashed_argmax_onepass(
+    rowgroup, colblock, data, cols, x_blocked, *, n_rowgroups: int, lengths=None
+):
+    """The argmax SpMM in one pass over the tile stream: the same
+    ``(y, idx, coeff)`` as :func:`hbp_spmm_hashed_argmax`, bit for bit.
+
+    Each lane step advances a paired ``(value, index, coefficient)``
+    payload: a lane term displaces the accumulator iff its value is
+    greater, or equal with a lower column (``-0.0`` and ``+0.0`` compare
+    equal there).  The value chain is the literal :func:`ieee_max`
+    sequence of :func:`lane_max`, so ``y`` is bitwise
+    :func:`hbp_spmm_hashed_max`'s.  Dead slots carry the int32-max column
+    so the tie-break never selects them.  The per-tile payloads
+    ``[T, group, k]`` are then combined over each row group's run without
+    touching the tile stream again.
+    """
+    n_cb, col_block, k = x_blocked.shape
+    x_flat = x_blocked.reshape(n_cb * col_block, k)
+    neg = torch.tensor(float("-inf"), dtype=data.dtype, device=data.device)
+
+    def lane_term(lane):
+        d, gcol, prod = _slot(colblock, data, cols, x_flat, col_block, lane)
+        live = d != 0
+        # the index and coefficient stay [T, group, 1] until a take
+        # broadcasts them over k
+        return (torch.where(live, prod, neg), torch.where(live, gcol, _INT_MAX),
+                torch.where(live, d, 0.0))
+
+    acc_v, acc_i, acc_c = lane_term(0)
+    acc_i, acc_c = acc_i.expand(acc_v.shape), acc_c.expand(acc_v.shape)
+    for lane in range(1, data.shape[2]):
+        v, i, c = lane_term(lane)
+        take = (v > acc_v) | ((v == acc_v) & (i < acc_i))
+        acc_v = ieee_max(acc_v, v)
+        acc_i = torch.where(take, i, acc_i)
+        acc_c = torch.where(take, c, acc_c)
+
+    # the row-group combine of the per-tile payloads
+    rg = rowgroup.long()
+    y = segment_max_sorted(acc_v, rowgroup, n_rowgroups, lengths)
+    attain = acc_v == y[rg]  # a tile's winner attains the row's max
+    idx_min = _segment_int(
+        torch.where(attain, acc_i, _INT_MAX), "min", rowgroup, n_rowgroups, _INT_MAX, lengths
+    )
+    live = idx_min < _INT_MAX  # also False for row groups with no tiles
+    idx = torch.where(live, idx_min, -1)
+    hit = attain & (acc_i == idx[rg])
+    coeff = segment_max_sorted(torch.where(hit, acc_c, neg), rowgroup, n_rowgroups, lengths)
+    return y, idx, torch.where(live, coeff, 0.0)
 
 
 def unpermute(y_hashed: torch.Tensor, perm: torch.Tensor, n_rows: int) -> torch.Tensor:

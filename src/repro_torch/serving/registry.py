@@ -30,8 +30,8 @@ from repro_torch import obs
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import PartitionConfig
 from repro_torch.core.tile import HBPTiles, build_tiles
-from repro_torch.graph.aggregate import mean_divisor
-from repro_torch.kernels import ops
+from repro_torch.kernels import autodiff, ops
+from repro_torch.kernels.autodiff import mean_divisor
 from repro_torch.obs import planview
 from repro_torch.obs.flight import get_flight
 from repro_torch.obs.metrics import MetricRegistry
@@ -44,10 +44,6 @@ __all__ = ["MatrixPlan", "MatrixRegistry"]
 
 # parts of the JAX registry's surface not ported yet, by ROADMAP item
 _DEFERRED = {
-    "admit_pair": "admit_pair (the A/Aᵀ pair for autodiff) belongs to the "
-    "training slice of the port, not ported yet: ROADMAP queue 1, item 6",
-    "diff_aggregator": "diff_aggregator (differentiable aggregation) belongs "
-    "to the training slice of the port, not ported yet: ROADMAP queue 1, item 6",
     "operator": "operator() (the solver LinearOperator) is not ported yet: "
     "ROADMAP queue 1, item 5",
     "jacobi": "jacobi() (the solver preconditioner) is not ported yet: "
@@ -80,6 +76,11 @@ class MatrixPlan:
     # deliberately NOT part of ``_meta()``: the kernels never see them
     quality: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     provenance: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # A <-> Aᵀ link, set by MatrixRegistry.admit_pair: the transpose plan's
+    # name and the plan itself (a symmetric matrix links to itself: one
+    # residency serves both directions)
+    transpose_name: Optional[str] = None
+    _transpose: object = dataclasses.field(default=None, repr=False, compare=False)
     # clamped in-degree [n, 1] on the plan's device, staged on the first
     # mean aggregation (and dropped with the tiles when budget-unstaged)
     _mean_div: object = dataclasses.field(default=None, repr=False, compare=False)
@@ -141,8 +142,30 @@ class MatrixPlan:
         raise ValueError(f"unknown aggregation {op!r} (sum | mean | max)")
 
     def diff_aggregator(self, *, op: str = "sum", mode: str = "vjp"):
-        """Differentiable aggregation — not ported yet."""
-        raise NotImplementedError(_DEFERRED["diff_aggregator"])
+        """Differentiable aggregation closure over the resident plan.
+
+        The sum and mean backward launches the *linked transpose plan's*
+        tiles (``x̄ = Aᵀ @ ȳ``), so the plan must have been admitted with
+        :meth:`MatrixRegistry.admit_pair`; max routes cotangents through
+        the argmax indices its forward saves and needs no transpose.  Mean
+        divides by the in-degree captured at admission.
+        """
+        if autodiff.needs_transpose(op, mode) and self._transpose is None:
+            raise ValueError(
+                f"plan {self.name!r} has no linked transpose — admit the "
+                "matrix with MatrixRegistry.admit_pair() for differentiable "
+                "sum/mean aggregation"
+            )
+        plan_T = self._transpose
+        return autodiff.device_diff_aggregator(
+            self.device,
+            plan_T.device if plan_T is not None else None,
+            self._meta(),
+            plan_T._meta() if plan_T is not None else None,
+            op=op,
+            degree=self.row_nnz if op == "mean" else None,
+            mode=mode,
+        )
 
     def operator(self):
         """The plan as a solver LinearOperator — not ported yet."""
@@ -179,7 +202,9 @@ class MatrixRegistry:
     ``hbm_budget_bytes`` caps the device footprint of staged tiles: past
     the budget the least-recently-used plans are *unstaged* (device
     tensors dropped, host tiles and geometry kept) and the next
-    :meth:`get` transparently re-stages them.  ``None`` disables it.
+    :meth:`get` transparently re-stages them; transpose pairs from
+    :meth:`admit_pair` are unstaged and re-staged as one unit.  ``None``
+    disables it.
     """
 
     def __init__(
@@ -344,9 +369,56 @@ class MatrixRegistry:
         self._charge(plan)
         return plan
 
-    def admit_pair(self, csr: CSRMatrix, name: Optional[str] = None, **kwargs) -> MatrixPlan:
-        """Admit ``csr`` and its transpose, linked — not ported yet."""
-        raise NotImplementedError(_DEFERRED["admit_pair"])
+    def admit_pair(
+        self,
+        csr: CSRMatrix,
+        name: Optional[str] = None,
+        *,
+        cfg: Optional[PartitionConfig] = None,
+        cfg_T: Optional[PartitionConfig] = None,
+    ) -> MatrixPlan:
+        """Admit ``csr`` AND its transpose, linked for differentiable use.
+
+        The backward of ``A @ X`` is an SpMM against ``Aᵀ``
+        (:mod:`repro_torch.kernels.autodiff`), so both directions become
+        resident plans cross-linked through ``transpose_name``.  Content
+        hashing makes every re-admission free, and a *symmetric* matrix
+        (GCN's normalized adjacency) hashes like its transpose: one plan
+        serves both directions, with no second build.  Returns the forward
+        plan; reach the transpose with :meth:`transpose_of`.  Under an HBM
+        budget the pair is evicted and re-staged as one unit.
+        """
+        plan = self.admit(csr, name, cfg=cfg)
+        if plan._transpose is not None:  # pair already linked (re-admission)
+            partner = plan._transpose
+            if cfg_T is not None and cfg_T != partner.cfg:
+                raise ValueError(
+                    f"transpose of {plan.name!r} is already resident as "
+                    f"{partner.name!r} with config {partner.cfg}; re-admission "
+                    f"pinned {cfg_T} — evict the pair first to rebuild"
+                )
+            if partner is not plan:  # keep both sides' admission counts in step
+                self.metrics.counter("registry.admissions", matrix=partner.name).inc()
+            return plan
+        plan_T = self.admit(csr.transpose(), f"{plan.name}::T", cfg=cfg_T)
+        plan.transpose_name = plan_T.name
+        plan._transpose = plan_T
+        plan_T.transpose_name = plan.name
+        plan_T._transpose = plan
+        if self.evictor is not None and plan_T is not plan:
+            # forward and backward are one residency unit: evicting one
+            # side would re-stage it on the next training step
+            self.evictor.link(plan.name, plan_T.name)
+            # admitting Aᵀ may have unstaged A before the link pinned the
+            # pair: stage the whole unit now
+            self._ensure_staged(plan)
+        return plan
+
+    def transpose_of(self, plan: MatrixPlan) -> MatrixPlan:
+        """The linked Aᵀ plan (admit with :meth:`admit_pair` first)."""
+        if plan._transpose is None:
+            raise KeyError(f"plan {plan.name!r} has no linked transpose")
+        return plan._transpose
 
     def get(self, name: str) -> MatrixPlan:
         """The resident plan for ``name`` (raises ``KeyError`` if absent).
@@ -369,11 +441,16 @@ class MatrixRegistry:
         return list(self._plans)
 
     def evict(self, name: str) -> None:
-        """Fully remove ``name``: plan and content-hash binding."""
+        """Fully remove ``name``: plan, content-hash binding and pair link."""
         plan = self._plans.pop(name)
         del self._by_hash[plan.matrix_hash]
+        partner = plan._transpose
+        if partner is not None and partner is not plan:
+            partner.transpose_name = None
+            partner._transpose = None
         if self.evictor is not None:
             self.evictor.drop(name)
+            self.evictor.unlink(name)
         self.metrics.counter("registry.evictions", matrix=name).inc()
         self.metrics.gauge("registry.resident").set(len(self._plans))
 
@@ -401,21 +478,28 @@ class MatrixRegistry:
             obs.counter("evict.unstaged", matrix=name).inc()
 
     def _ensure_staged(self, plan: MatrixPlan) -> None:
-        """Refresh recency; re-stage the plan if budget-evicted."""
+        """Refresh recency; re-stage the plan's unit if budget-evicted.
+
+        A transpose pair is one unit: both sides are re-staged together,
+        so a training step never finds half of its residency missing."""
         if self.evictor is None:
             return
         self.evictor.touch(plan.name)
-        if plan.device is not None:
-            return
-        t0 = time.perf_counter()
-        with obs.span("serve.restage", matrix=plan.name):
-            plan.device = ops.device_tiles(plan.tiles, self.device)
-        restage_s = time.perf_counter() - t0
-        m = self.metrics
-        m.counter("evict.restages", matrix=plan.name).inc()
-        m.counter("evict.restage_s", matrix=plan.name).inc(restage_s)
-        get_flight().record("evict.restage", matrix=plan.name, restage_s=round(restage_s, 6))
-        self._charge(plan)
+        unit = [plan]
+        if plan._transpose is not None and plan._transpose is not plan:
+            unit.append(plan._transpose)
+        for p in unit:
+            if p.device is not None:
+                continue
+            t0 = time.perf_counter()
+            with obs.span("serve.restage", matrix=p.name):
+                p.device = ops.device_tiles(p.tiles, self.device)
+            restage_s = time.perf_counter() - t0
+            m = self.metrics
+            m.counter("evict.restages", matrix=p.name).inc()
+            m.counter("evict.restage_s", matrix=p.name).inc(restage_s)
+            get_flight().record("evict.restage", matrix=p.name, restage_s=round(restage_s, 6))
+            self._charge(p)
 
     def stats(self) -> dict:
         """Per-matrix admission/preprocessing snapshot (engine adds traffic).

@@ -30,7 +30,7 @@ from repro_torch.kernels.hbp_spmv import (
     hbp_spmv_partials_plain,
 )
 
-from hub_runs import hub_config, hub_coo
+from hub_runs import ZERO_CONFIG, hub_config, hub_coo, signed_zero_coo
 
 pytestmark = pytest.mark.gpu
 
@@ -91,8 +91,58 @@ def test_max_and_partials_kernels_match_plain(cuda, name, lane):
         P = hbp_spmm_partials(dt, X)
         _close(P, hbp_spmm_partials_plain(dt, X))
         assert torch.equal(P[..., k // 2], p), k
-        assert torch.equal(hbp_spmm_fused_max(dt, X), hbp_spmm_fused_max_plain(dt, X)), k
-        assert torch.equal(hbp_spmm_partials_max(dt, X), hbp_spmm_partials_max_plain(dt, X)), k
+        # bit patterns: torch.equal would let -0.0 pass for +0.0
+        assert torch.equal(hbp_spmm_fused_max(dt, X).view(torch.int32),
+                           hbp_spmm_fused_max_plain(dt, X).view(torch.int32)), k
+        assert torch.equal(hbp_spmm_partials_max(dt, X).view(torch.int32),
+                           hbp_spmm_partials_max_plain(dt, X).view(torch.int32)), k
+        assert torch.equal(hbp_spmm_partials_max(dt, X, runs=True).view(torch.int32),
+                           hbp_spmm_partials_max_plain(dt, X, runs=True).view(torch.int32)), k
+
+
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_partials_max_run_combine_on_both_paths(cuda, group):
+    """Kernel 4 with its run combine kernel equals the plain segment max
+    bitwise on the combine's scalar path (group * k not a multiple of 4)
+    and its float4 path, with runs long enough to be split into chunks."""
+    cfg = PartitionConfig(row_block=64, col_block=128, group=group, lane=4)
+    dt = ops.device_tiles(build_tiles(rmat(1 << 11, 40_000, seed=8), cfg), cuda)
+    assert dt.n_split_chunks > 0
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for k in (1, 2, 3, 4, 129):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[::5] = 0.0
+        X[1::5] = -0.0
+        _same_bits(hbp_spmm_partials_max(dt, X, runs=True),
+                   hbp_spmm_partials_max_plain(dt, X, runs=True), (group, k))
+
+
+@pytest.mark.parametrize("k", [1, 4, 8, 128])
+@pytest.mark.parametrize("sign", [0.0, -0.0], ids=["x+0", "x-0"])
+def test_max_ranks_positive_zero_above_negative_zero_on_the_card(cuda, sign, k):
+    """The signed-zero probe: ``-0.0`` and ``+0.0`` products meet in lane
+    order, in tile order and across a split run's chunks; kernels 3-4, the
+    run combine and every entry point give IEEE's maximum (``+0.0``)."""
+    rows, cols, vals, shape, want = signed_zero_coo()
+    dt = ops.device_tiles(build_tiles(csr_from_coo(COOMatrix(rows, cols, vals, shape)),
+                                      PartitionConfig(**ZERO_CONFIG)), cuda)
+    X = torch.full((shape[1], k), sign, device=cuda)
+    want = np.zeros_like(want) if np.signbit(sign) else want
+    want_t = torch.as_tensor(np.repeat(want[:, None], k, 1), device=cuda).view(torch.int32)
+
+    def bits(y_hashed):
+        # rows with no live entry hold the identity -inf; they come out 0
+        y_hashed = y_hashed.masked_fill(torch.isneginf(y_hashed), 0.0)
+        return ref.unpermute(y_hashed, dt.perm, shape[0]).view(torch.int32)
+
+    assert torch.equal(bits(hbp_spmm_fused_max(dt, X)), want_t)
+    P = hbp_spmm_partials_max(dt, X)
+    assert torch.equal(bits(ref.segment_max_sorted(P, dt.rowgroup, dt.n_rowgroups,
+                                                   dt.rg_lengths)), want_t)
+    assert torch.equal(bits(hbp_spmm_partials_max(dt, X, runs=True)), want_t)
+    for strategy in ("fused", "partials", "stable", "reference"):
+        y = ops.hbp_spmm(dt, X, strategy=strategy, combine="max")
+        assert torch.equal(y.view(torch.int32), want_t), strategy
 
 
 def test_launch_counters_count_launches_only(cuda):
@@ -108,7 +158,11 @@ def test_launch_counters_count_launches_only(cuda):
         w(dt, arg)
     hbp_spmv_fused_plain(dt, x)
     hbp_spmm_partials_max_plain(dt, X)
+    hbp_spmm_partials_max_plain(dt, X, runs=True)
     assert [w.launches for w, _ in wrappers] == [n + 1 for n in before]
+    # the partials max with its run combine is one launch call
+    hbp_spmm_partials_max(dt, X, runs=True)
+    assert hbp_spmm_partials_max.launches == before[-1] + 2
 
 
 @pytest.mark.parametrize("strategy", ["fused", "partials", "stable"])
@@ -359,11 +413,14 @@ def test_hub_max_kernels_equal_plain_and_fold_split_runs(cuda, lane):
         for Xk in (X, _offset(X)):
             _same_bits(hbp_spmm_fused_max(dt, Xk), hbp_spmm_fused_max_plain(dt, X), k)
             _same_bits(hbp_spmm_partials_max(dt, Xk), hbp_spmm_partials_max_plain(dt, X), k)
+            _same_bits(hbp_spmm_partials_max(dt, Xk, runs=True),
+                       hbp_spmm_partials_max_plain(dt, X, runs=True), k)
     empty = torch.as_tensor(np.setdiff1d(np.arange(tiles.n_rowgroups), tiles.rowgroup),
                             device=cuda)
     assert empty.numel()
     X = torch.randn(dt.shape[1], 8, device=cuda, generator=g)
     assert bool(torch.all(torch.isneginf(hbp_spmm_fused_max(dt, X)[empty])))
+    assert bool(torch.all(torch.isneginf(hbp_spmm_partials_max(dt, X, runs=True)[empty])))
     Y = ops.hbp_spmm(dt, X, combine="max")
     for s in ("partials", "stable"):
         assert torch.equal(ops.hbp_spmm(dt, X, strategy=s, combine="max"), Y), s
@@ -389,8 +446,8 @@ def _nan_tiles(cuda, name):
 @pytest.mark.parametrize("name", ["rmat", "hub", "holes"])
 def test_max_carries_nan_on_the_card(cuda, name):
     """A NaN in x reached by a live slot gives NaN through kernels 3-4, the
-    fused max's fold, the partials max combine (``segment_reduce``) and
-    both entry points, where the plain versions and "stable" give it; a
+    fused max's fold, the partials max combine (``segment_reduce``, and
+    the combine kernel of ``runs=True``) and both entry points, where the plain versions and "stable" give it; a
     NaN reached only by padded slots changes nothing."""
     tiles, dt = _nan_tiles(cuda, name)
     x_row = tiles.colblock[:, None, None].astype(np.int64) * tiles.cfg.col_block + tiles.cols
@@ -417,9 +474,109 @@ def test_max_carries_nan_on_the_card(cuda, name):
             want[rg] = P[a:b].amax(0)
         _same_bits(ref.segment_max_sorted(P, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths),
                    want, ("combine", k))
+        _same_bits(hbp_spmm_partials_max(dt, X, runs=True), want, ("combine kernel", k))
         stable = ops.hbp_spmm(dt, X, strategy="stable", combine="max")
         for s in ("fused", "partials"):
             _same_bits(ops.hbp_spmm(dt, X, strategy=s, combine="max"), stable, (s, k))
         X[padding_only] = 0.0
         _same_bits(hbp_spmm_fused_max(dt, X), Yf, ("padding only", k))
         _same_bits(hbp_spmm_partials_max(dt, X), P, ("padding only", k))
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_argmax_on_the_card_equals_the_cpu(cuda, passes):
+    """The argmax SpMM is exact torch code: the card gives the CPU's
+    triple bit for bit (NaN positions included)."""
+    tiles = build_tiles(MATRICES["rmat"](), PartitionConfig(row_block=256, col_block=1024,
+                                                           group=8, lane=8))
+    dt, dt_cpu = ops.device_tiles(tiles, cuda), ops.device_tiles(tiles, "cpu")
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for k in (1, 8, 128):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, 0] = torch.round(X[:, 0])  # ties
+        X[5] = float("nan")
+        for a, b in zip(ops.hbp_spmm_argmax(dt, X, passes=passes),
+                        ops.hbp_spmm_argmax(dt_cpu, X.cpu(), passes=passes)):
+            a = a.cpu()
+            if a.is_floating_point():
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+                a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("strategy,kernel", [("fused", hbp_spmm_fused),
+                                             ("partials", hbp_spmm_partials)])
+def test_backward_is_the_transpose_kernel(cuda, tmp_path, strategy, kernel):
+    """The sum and mean backward on a registry pair launches kernel 2
+    (fused) or 6 (partials) on the Aᵀ tiles, and agrees with the CPU."""
+    from repro_torch.graph import plan_diff_aggregator, power_law_graph
+    from repro_torch.serving import MatrixRegistry
+
+    adj = power_law_graph(3000, 8.0, seed=5, symmetric=False)
+    reg = MatrixRegistry(device=cuda, cache_dir=tmp_path / "c", search=False, strategy=strategy)
+    ref_reg = MatrixRegistry(device="cpu", cache_dir=tmp_path / "r", search=False)
+    plan, plan_cpu = reg.admit_pair(adj), ref_reg.admit_pair(adj)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(3000, 64, device=cuda, generator=g)
+    y_bar = torch.randn(3000, 64, device=cuda, generator=g)
+    for op in ("sum", "mean", "max"):
+        xr = x.clone().requires_grad_(True)
+        y = plan_diff_aggregator(plan, op=op)(xr)
+        before = kernel.launches
+        (x_bar,) = torch.autograd.grad(y, xr, y_bar[:, :].T.contiguous().T)  # strided
+        if op != "max":
+            assert kernel.launches > before, op
+        xc = x.cpu().requires_grad_(True)
+        (x_bar_cpu,) = torch.autograd.grad(plan_diff_aggregator(plan_cpu, op=op)(xc), xc,
+                                           y_bar.cpu())
+        _close(x_bar.cpu(), x_bar_cpu)
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_kernel_aggregators_refuse_to_differentiate(cuda, strategy):
+    """The kernels record no autograd graph: a GCN layer over the ordinary
+    aggregator raises under grad mode instead of leaving W without a
+    gradient, runs under no_grad, and trains through the differentiable
+    twin, whose gradients are the CPU chain's."""
+    from repro_torch.graph import GCN, make_aggregator, make_diff_aggregator, power_law_graph
+
+    adj = power_law_graph(2000, 8.0, seed=7)
+    gcn = GCN([16, 8], generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    x = torch.randn(2000, 16, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    for op in ("sum", "max"):
+        agg = make_aggregator(adj, op=op, strategy=strategy, device=cuda)
+        with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+            gcn(agg, x)
+        with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+            agg(x.clone().requires_grad_(True))
+        with torch.no_grad():
+            assert torch.isfinite(gcn(agg, x)).all()
+        gcn.zero_grad()
+        gcn(make_diff_aggregator(adj, op=op, strategy=strategy, device=cuda), x).sum().backward()
+        grads = [p.grad.cpu() for p in gcn.parameters()]
+        cpu = GCN.from_params([tuple(f.detach().cpu().numpy() for f in p) for p in gcn.params()])
+        cpu(make_diff_aggregator(adj, op=op, device="cpu"), x.cpu()).sum().backward()
+        for got, p in zip(grads, cpu.parameters()):
+            _close(got, p.grad)
+
+
+def test_training_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from repro_torch.graph import power_law_graph
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.serving import MatrixRegistry
+
+    adj = power_law_graph(2000, 8.0, seed=6, symmetric=False)
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2000, 32)).astype(np.float32)
+    labels = rng.integers(0, 5, 2000)
+    for model, op in (("gcn", "sum"), ("sage", "mean"), ("sage", "max")):
+        hist = {}
+        for strategy, dev in (("fused", cuda), ("partials", cuda), ("stable", "cpu")):
+            reg = MatrixRegistry(device=dev, cache_dir=tmp_path / strategy, search=False,
+                                 strategy=strategy)
+            trainer = NodeClassifierTrainer([32, 64, 5], model=model, op=op, registry=reg)
+            _, h = trainer.fit(adj, x, labels, steps=3, key=3)
+            hist[strategy] = np.array([m["loss"] for m in h])
+        for strategy in ("fused", "partials"):
+            np.testing.assert_allclose(hist[strategy], hist["stable"], rtol=1e-4)

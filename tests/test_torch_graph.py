@@ -137,12 +137,17 @@ def test_aggregation_rejects_unknown_ops_and_defers_autodiff(graph, tmp_path):
     plan = treg.admit(a_t, "g")
     with pytest.raises(ValueError, match="aggregation"):
         tg.plan_aggregator(plan, op="min")
-    for call in (
-        lambda: tg.make_diff_aggregator(a_t, op="sum"),
-        lambda: tg.plan_diff_aggregator(plan, op="max"),
-    ):
-        with pytest.raises(NotImplementedError, match="training slice.*ROADMAP"):
-            call()
+    # the differentiable aggregators are served now; they reject unknown
+    # ops alike, and sum/mean over a plan need its linked transpose
+    with pytest.raises(ValueError, match="aggregation"):
+        tg.make_diff_aggregator(a_t, op="min", device="cpu")
+    with pytest.raises(ValueError, match="aggregation"):
+        tg.plan_diff_aggregator(plan, op="min")
+    with pytest.raises(ValueError, match="admit_pair"):
+        tg.plan_diff_aggregator(plan, op="sum")
+    x = torch.ones((a_t.shape[1], 2))
+    assert tg.make_diff_aggregator(a_t, op="sum", device="cpu")(x).shape == (a_t.shape[0], 2)
+    assert tg.plan_diff_aggregator(plan, op="max")(x).shape == (a_t.shape[0], 2)
 
 
 def _carried(params):
@@ -179,12 +184,25 @@ def test_forward_matches_jax_with_carried_weights(graph, tmp_path, name, strateg
     else:
         agg = tg.make_aggregator(adj_t, op=op, strategy=strategy, device="cpu")
     net = module.from_params(_carried(params), device="cpu")
-    logits_t = net(agg, torch.as_tensor(x))
-    assert logits_t.shape == (N, DIMS[-1]) and not logits_t.requires_grad
+    if strategy == "stable":
+        # the modules' parameters are trainable: the plain chain's logits
+        # carry their graph
+        logits_t = net(agg, torch.as_tensor(x))
+        assert logits_t.requires_grad
+        logits_t = logits_t.detach()
+    else:
+        # the kernels record no graph: under grad mode they refuse, as on
+        # the card, and name the differentiable aggregators
+        with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+            net(agg, torch.as_tensor(x))
+        with torch.no_grad():
+            logits_t = net(agg, torch.as_tensor(x))
+    assert logits_t.shape == (N, DIMS[-1])
     _close(logits_t, logits_j, rtol=1e-4)
     # the functional forward over the module's parameters is the same code
     t_fwd = tg.gcn_forward if model == "gcn" else tg.sage_forward
-    assert torch.equal(t_fwd(agg, net.params(), torch.as_tensor(x)), logits_t)
+    with torch.no_grad():
+        assert torch.equal(t_fwd(agg, net.params(), torch.as_tensor(x)), logits_t)
 
 
 def test_modules_from_a_generator_and_weight_loading(graph):
@@ -197,7 +215,7 @@ def test_modules_from_a_generator_and_weight_loading(graph):
     assert torch.equal(a(agg, xt), b(agg, xt)) and not torch.equal(a(agg, xt), c(agg, xt))
     assert [tuple(p.W_self.shape) for p in a.params()] == [(16, 32), (32, 32), (32, 7)]
     assert all(torch.equal(p.b, torch.zeros_like(p.b)) for p in a.params())
-    c.load_params([tuple(t.numpy() for t in p) for p in a.params()])
+    c.load_params([tuple(t.detach().numpy() for t in p) for p in a.params()])
     assert torch.equal(a(agg, xt), c(agg, xt))
     with pytest.raises(ValueError, match="shape"):
         c.load_params([tuple(np.zeros((2, 2), np.float32) for _ in p) for p in a.params()])

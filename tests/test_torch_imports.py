@@ -47,8 +47,9 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
     code = (
         "import sys\n"
         "import repro_torch.serving, repro_torch.kernels, repro_torch.obs, repro_torch.core\n"
-        "import repro_torch.graph\n"
+        "import repro_torch.graph, repro_torch.graph.train, repro_torch.optim\n"
         "import repro_torch.kernels.hbp_spmv, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.autodiff, repro_torch.core.spmv\n"
         "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -79,4 +80,22 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         graph.make_aggregator(csr, op="max")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graph.aggregate(tiles, torch.ones(8, 2), op="max")
+    # the training slice and the front door default to the card too
+    from repro_torch.core import spmm, spmv
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.kernels import autodiff
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.make_diff_aggregator(csr, op="sum")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autodiff.diff_aggregator(autodiff.hbp_transpose(csr), op="max")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.hbp_spmm_argmax(tiles, torch.ones(8, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NodeClassifierTrainer([4, 2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spmv(tiles, torch.ones(8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spmm(csr, torch.ones(8, 2), backend="cuda")
+    assert NodeClassifierTrainer([4, 2], device="cpu").strategy == "stable"
     assert ops.device_tiles(tiles, "cpu").device == torch.device("cpu")

@@ -38,7 +38,7 @@ from repro_torch.kernels.hbp_spmv import (
     partials_geometry,
 )
 
-from hub_runs import hub_config, hub_coo
+from hub_runs import ZERO_CONFIG, hub_config, hub_coo, signed_zero_coo
 
 # the kernels' module (``repro_torch.kernels.hbp_spmv`` is also the name of
 # the ops entry point, which an attribute lookup on the package returns)
@@ -144,7 +144,8 @@ def test_max_matches_jax_exactly(lane, strategy, k, k_tiling):
         jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True, k_tiling=k_tiling)
     )
     y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max", k_tiling=k_tiling).numpy()
-    np.testing.assert_array_equal(y_t, y_j)
+    # bit patterns: assert_array_equal would let -0.0 pass for +0.0
+    np.testing.assert_array_equal(y_t.view(np.int32), y_j.view(np.int32))
 
 
 def _numpy_max(csr, X):
@@ -190,10 +191,9 @@ def test_max_edge_cases(max_edge_cases, strategy):
     X = np.abs(np.random.default_rng(4).standard_normal((70, 6))).astype(np.float32) + 0.1
     X[:, 5] = -X[:, 5]  # a column where row 60's products are all positive
     Y = tops.hbp_spmm(dt, X, strategy=strategy, combine="max").numpy()
-    np.testing.assert_array_equal(Y, _numpy_max(csr, X))
-    np.testing.assert_array_equal(
-        Y, np.asarray(jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True))
-    )
+    np.testing.assert_array_equal(Y.view(np.int32), _numpy_max(csr, X).view(np.int32))
+    y_j = np.asarray(jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True))
+    np.testing.assert_array_equal(Y.view(np.int32), y_j.view(np.int32))
     assert np.all(Y[16:48] == 0.0) and np.all(Y[70] == 0.0)
     assert np.all(Y[60, :5] < 0.0) and Y[60, 5] > 0.0
 
@@ -243,6 +243,53 @@ def test_max_propagates_nan_like_jax(strategy, lane, k):
             assert np.all(np.isnan(y_t[5]))  # NaN, not the 0 of a row with no live entry
         else:
             assert not nan.any()
+
+
+_ZERO_TILES = {}
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("sign", [0.0, -0.0], ids=["x+0", "x-0"])
+@pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
+def test_max_ranks_positive_zero_above_negative_zero_like_jax(strategy, sign, k):
+    """IEEE's maximum, as ``jnp.maximum``: ``+0.0`` above ``-0.0`` whatever
+    their order, where ``-0.0`` meets ``+0.0`` in a tile row's lane order
+    (rows 0-1), in tile order within a run (rows 2-3) and across the
+    chunks of a split run (rows 5-6); a row of ``-0.0`` products alone
+    stays ``-0.0`` (row 4).  Compared as bit patterns."""
+    if "tiles" not in _ZERO_TILES:
+        rows, cols, vals, shape, want = signed_zero_coo()
+        csr = jcore.csr_from_coo(jcore.COOMatrix(rows, cols, vals, shape))
+        _ZERO_TILES["tiles"] = (*_pair_csr(csr, ZERO_CONFIG["lane"], **{
+            key: v for key, v in ZERO_CONFIG.items() if key != "lane"}), want)
+    tj, dt, want = _ZERO_TILES["tiles"]
+    assert tops.RUN_CHUNK < tj.n_tiles and dt.n_split_chunks > 0  # rows 5-6 fold
+    X = np.full((tj.shape[1], k), sign, np.float32)
+    y_j = np.asarray(jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True))
+    y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max").numpy()
+    np.testing.assert_array_equal(y_t.view(np.int32), y_j.view(np.int32))
+    # with x = -0.0 the products change sign: row 4's become +0.0
+    expect = np.zeros_like(want) if np.signbit(sign) else want
+    np.testing.assert_array_equal(y_t.view(np.int32), np.repeat(expect[:, None], k, 1).view(np.int32))
+
+
+@pytest.mark.parametrize("order", [(-0.0, 0.0), (0.0, -0.0), (-0.0, -0.0), (0.0, 0.0),
+                                   (-0.0, float("nan")), (-1.0, -0.0)])
+def test_plain_max_steps_are_ieee_maximum(order):
+    """The lane step and the run combine rank ``+0.0`` above ``-0.0`` and
+    carry NaN, on operands in either position (``torch.maximum`` on the
+    CPU and ``torch.segment_reduce`` keep the first of two equal ones)."""
+    a, b = (torch.tensor([v], dtype=torch.float32) for v in order)
+    want = np.maximum(np.float32(order[0]), np.float32(order[1]))
+    if order[0] == 0.0 and order[1] == 0.0:
+        want = np.float32(-0.0 if np.signbit(order[0]) and np.signbit(order[1]) else 0.0)
+    for got in (tref.ieee_max(a, b), tref.ieee_max(b, a),
+                tref.segment_max_sorted(torch.cat([a, b]), torch.zeros(2, dtype=torch.int32), 1),
+                tref.segment_max_sorted(torch.cat([b, a]), torch.zeros(2, dtype=torch.int32), 1)):
+        if np.isnan(want):
+            assert torch.isnan(got).all()
+        else:
+            assert got.numpy().view(np.int32)[0] == np.float32(want).view(np.int32)
 
 
 @pytest.mark.parametrize("strategy", ["fused", "partials", "stable", "reference"])
@@ -314,8 +361,11 @@ def test_plain_partials_and_max_wrappers(tiles):
     assert Ym.shape == (tj.n_rowgroups, tj.cfg.group, 4)
     empty = np.setdiff1d(np.arange(tj.n_rowgroups), tj.rowgroup)
     assert torch.all(torch.isneginf(Ym[torch.as_tensor(empty, dtype=torch.long)]))
-    # the run max of the per-tile maxima is the fused max
+    # the run max of the per-tile maxima is the fused max, and the partials
+    # max with its run combine gives the same bits
     assert torch.equal(tref.segment_max_sorted(Pm, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths), Ym)
+    Yr = hbp_spmm_partials_max(dt, X, runs=True)
+    assert torch.equal(Yr.view(torch.int32), Ym.view(torch.int32))
 
 
 def test_plain_fused_spmv_equals_spmm_column(tiles):
@@ -387,12 +437,12 @@ def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
 
 
 def test_deferred_paths_raise_not_implemented(tiles):
-    """What stays deferred raises, naming its slice; partials and max are
-    served."""
+    """Nothing of the kernel front end stays deferred: the argmax, partials
+    and max are served, and bad arguments raise."""
     _, dt = tiles
     X = np.ones((dt.shape[1], 2), np.float32)
-    with pytest.raises(NotImplementedError, match="training slice.*ROADMAP"):
-        tops.hbp_spmm_argmax(dt, X)
+    y, idx, coeff = tops.hbp_spmm_argmax(dt, X)
+    assert y.shape == idx.shape == coeff.shape == (dt.shape[0], 2)
     assert tops.hbp_spmm(dt, X, strategy="partials").shape == (dt.shape[0], 2)
     assert tops.hbp_spmv(dt, X[:, 0], strategy="partials").shape == (dt.shape[0],)
     assert tops.hbp_spmm(dt, X, combine="max").shape == (dt.shape[0], 2)
@@ -416,6 +466,31 @@ def test_wrappers_check_their_operands(tiles):
     assert tops.hbp_spmv(dt, x, device="cpu").shape == (dt.shape[0],)
     with pytest.raises(ValueError, match="staged on"):
         tops.hbp_spmv(dt, x, device="meta")
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_kernel_paths_refuse_inputs_that_require_grad(tiles, strategy):
+    """The kernels record no autograd graph, and their plain versions
+    stand for them on the CPU: every wrapper and kernel strategy refuses an
+    x that requires grad while grad mode is on, and runs under no_grad or
+    on a detached x; the plain chain ("stable") stays differentiable."""
+    _, dt = tiles
+    x = torch.randn(dt.shape[1], 3, generator=torch.Generator().manual_seed(4),
+                    requires_grad=True)
+    wrappers = {"fused": (hbp_spmm_fused, hbp_spmm_fused_max),
+                "partials": (hbp_spmm_partials, hbp_spmm_partials_max)}[strategy]
+    for wrapper in wrappers:
+        with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+            wrapper(dt, x)
+    for combine in ("sum", "max"):
+        with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+            tops.hbp_spmm(dt, x, strategy=strategy, combine=combine)
+        with torch.no_grad():
+            y = tops.hbp_spmm(dt, x, strategy=strategy, combine=combine)
+        assert torch.equal(y, tops.hbp_spmm(dt, x.detach(), strategy=strategy, combine=combine))
+    with pytest.raises(RuntimeError, match="make_diff_aggregator"):
+        tops.hbp_spmv(dt, x[:, 0], strategy=strategy)
+    assert tops.hbp_spmm(dt, x, strategy="stable").requires_grad
 
 
 # --- the chunk index of the fused kernels ------------------------------------

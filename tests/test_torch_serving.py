@@ -190,8 +190,9 @@ def test_registry_device_and_strategy_defaults(tmp_path):
 
 
 def test_deferred_registry_surface_raises(tmp_path):
-    """The training and solver surface stays deferred, naming its ROADMAP
-    item; every aggregation and the max combine are served."""
+    """The solver surface stays deferred, naming its ROADMAP item; every
+    aggregation, the max combine and the training surface (the A/Aᵀ pair,
+    differentiable aggregation) are served."""
     treg, tm = _port_registry(tmp_path)
     plan = treg.get("A")
     x = np.ones((tm["A"].shape[1], 2), np.float32)
@@ -200,9 +201,10 @@ def test_deferred_registry_surface_raises(tmp_path):
     assert plan.matmat(x, combine="max").shape == (tm["A"].shape[0], 2)
     with pytest.raises(ValueError):
         plan.aggregate(x, op="min")
+    pair = treg.admit_pair(tm["A"], "A2")
+    assert pair is plan and treg.transpose_of(plan).name == "A::T"
+    assert plan.diff_aggregator(op="max")(x).shape == (tm["A"].shape[0], 2)
     for call, item in (
-        (lambda: treg.admit_pair(tm["A"], "A2"), "training slice"),
-        (lambda: plan.diff_aggregator(), "training slice"),
         (lambda: plan.operator(), "item 5"),
         (lambda: plan.jacobi(), "item 5"),
     ):
