@@ -66,7 +66,7 @@ Phases (any failure exits non-zero; none is caught):
    partials max also kernel 4 with its run combine (``runs_ms``) beside
    the plain combine it replaces (``plain_combine_ms``);
 
-and, run after phase 3 (zero, spmv) and after phase 6 (train):
+and, run after phase 3 (zero, spmv) and after phase 6 (train, solvers):
 
 * zero     — the signed-zero probe of ``tests/hub_runs.py`` (x = +0 and
   -0, so every product is a zero): kernels 3-4, their plain versions, the
@@ -94,7 +94,31 @@ and, run after phase 3 (zero, spmv) and after phase 6 (train):
   fanouts (10, 5), batch 1024, two epochs of four batches, the second
   admitting nothing.  Prints ms per train step (CUDA events), the argmax
   SpMM's ms at k = 128 and 256 and its share of a SAGE-max step, and
-  ``torch.cuda.max_memory_allocated``.
+  ``torch.cuda.max_memory_allocated``;
+* solvers  — ``repro_torch.solvers`` on the card under ``"fused"`` and
+  ``"partials"``: CG at k = 1 and 8 (``tol=1e-5``) and Chebyshev (40
+  steps, ``lam`` in [8/30, 8], within ``rtol=1e-4`` of the same run on the
+  plain versions on the card) on the 5-point Laplacian of a 512 x 512
+  grid (262,144 rows; cut from 1024 x 1024, see ``SOLVER_GRID``); CG at
+  ``CHECK_EVERY`` = 1, 2, 4, 8, 16, 32, bit
+  for bit the default's; Jacobi and block-Jacobi (hash-group blocks) PCG
+  on ``D A D`` of a 512 x 512 grid, ``d`` log-uniform over [1e-2, 1e2]
+  (fewer steps than CG without M; within 2 % of the plain versions' count);
+  BiCGSTAB on ``m11_rajat21 + 1.5 max|a| I`` at k = 1 and 8, with and
+  without Jacobi; PageRank (damping 0.85, ``tol=1e-8``) on the transition
+  matrix of ``m4_kron16`` at k = 1 and 8, within 1e-5 (L1 per column) of
+  the float64 recurrence (scipy.sparse) for the same step count; power
+  iteration on ``rmat_graph(1 << 16, 79.345703125, seed=4)`` within 1e-4
+  of ``eigsh``; and ``MatrixRegistry(probe=cg_probe(iters=10))`` admitting
+  the 512 x 512 Laplacian by measured search (lanes 8/16/32), then
+  ``cg(plan.operator(), b, M=plan.jacobi())``.  Every linear solve
+  converges (Chebyshev: exactly 40 steps) and its float64 true residual
+  stays under the recurrence's plus ``GAP_FLOOR_FACTOR`` times the f32
+  floor; each prints its iterations, ms per solve and per iteration (CUDA
+  events), host syncs (``set_sync_debug_mode("warn")``), kernel launches
+  and the masked ones after convergence, and the HBP kernels' share of the
+  solve and the device's busy share (``torch.profiler``); the launch
+  counters must rise.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -433,6 +458,401 @@ def train_phase(graph_regs, A_sym, dev, g, wrappers, reset_counts, read_counts) 
         f"admission ({resident} plans resident); losses {[round(v, 4) for v in losses]}")
     log(f"[train] torch.cuda.max_memory_allocated over the phase: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+# --- the solvers phase ------------------------------------------------------
+
+# Poisson grids of the phase: CG and Chebyshev on SOLVER_GRID^2 rows,
+# preconditioned CG and the registry's measured search on PCG_GRID^2.
+# CG and Chebyshev were to run on 1024^2 (1,048,576 rows); the phase is
+# cut to 512^2 because the host-side tile build of the 1024^2 Laplacian
+# alone took 337 s on the card's host (build_tiles' per-block numpy work
+# grows with row blocks times column blocks), over the phase's minute.
+SOLVER_GRID = 512
+CUT_FROM_GRID = 1024
+PCG_GRID = 512
+# CHECK_EVERY values whose CG cost the phase prints beside the default
+CHECK_EVERY_SWEEP = (1, 2, 4, 8, 16, 32)
+# The float64 true residual of an f32 solve may exceed its recurrence
+# residual by the rounding gap: x is stored in f32, so even the exact
+# solution rounded to f32 leaves up to u * || |A| |x| || / ||b|| (u =
+# 2**-24), and the recurrence's updates add their own rounding.  That gap
+# measured 3-6x the floor for CG on Poisson 64^2-256^2, PCG on its scaled
+# form and BiCGSTAB on m11_rajat21 (the plain versions on the CPU); 16x
+# leaves room, and still fails a solve that is wrong by orders of magnitude.
+GAP_FLOOR_FACTOR = 16
+# The kernel each strategy launches at k = 1 and at k > 1.
+SOLVER_KERNELS = {("fused", False): "hbp_spmv_fused", ("fused", True): "hbp_spmm_fused",
+                  ("partials", False): "hbp_spmv_partials",
+                  ("partials", True): "hbp_spmm_partials"}
+
+
+def poisson2d(g: int):
+    """5-point Laplacian on a g x g grid, the canonical SPD CG system (a
+    copy of ``benchmarks/bench_solvers.py``'s ``poisson2d``)."""
+    from repro_torch.core import COOMatrix, csr_from_coo
+
+    n = g * g
+    i = np.arange(n)
+    ix, iy = i // g, i % g
+    rows, cols, vals = [i], [i], [np.full(n, 4.0)]
+    for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ok = (0 <= ix + dx) & (ix + dx < g) & (0 <= iy + dy) & (iy + dy < g)
+        rows.append(i[ok])
+        cols.append((ix[ok] + dx) * g + iy[ok] + dy)
+        vals.append(np.full(ok.sum(), -1.0))
+    return csr_from_coo(
+        COOMatrix(np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), (n, n)))
+
+
+def shifted(csr, sigma: float):
+    """A + sigma I (a copy of ``benchmarks/bench_solvers.py``'s ``shifted``)."""
+    from repro_torch.core import COOMatrix, csr_from_coo
+
+    coo = csr.to_coo()
+    n = csr.n_rows
+    return csr_from_coo(COOMatrix(
+        np.concatenate([coo.row, np.arange(n)]), np.concatenate([coo.col, np.arange(n)]),
+        np.concatenate([coo.data, np.full(n, sigma)]), csr.shape))
+
+
+def scaled(csr, d: np.ndarray):
+    """D A D for the diagonal ``d``."""
+    from repro_torch.core import CSRMatrix
+
+    rows = np.repeat(np.arange(csr.n_rows), np.diff(csr.indptr))
+    return CSRMatrix(csr.indptr, csr.indices, csr.data * d[rows] * d[csr.indices], csr.shape)
+
+
+def plain_operator(tiles, strategy: str, dev):
+    """The solvers' operator on the card with each kernel replaced by its
+    plain version: what ``ops`` runs under ``strategy``, bit for bit but
+    for the kernel call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.solvers import LinearOperator
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    dt = ops.device_tiles(tiles, dev)
+    n = dt.shape[0]
+
+    def hashed(x):
+        if strategy == "fused":
+            return K.hbp_spmm_fused_plain(dt, x)
+        return ref.segment_sum_sorted(K.hbp_spmm_partials_plain(dt, x), dt.rowgroup,
+                                      dt.n_rowgroups, dt.rg_lengths)
+
+    return LinearOperator(
+        dt.shape, matvec=lambda x: ref.unpermute(hashed(x[:, None])[..., 0], dt.perm, n),
+        matmat=lambda x: ref.unpermute(hashed(x), dt.perm, n), device=dev)
+
+
+def kernel_device_ms(fn):
+    """(ms of the HBP kernels, ms of every kernel) on the card during one
+    call of ``fn`` (``torch.profiler``), or ``(None, None)`` when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hbp = total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        total += us
+        if "hbp_" in e.key:
+            hbp += us
+    return (hbp / 1e3, total / 1e3) if total > 0 else (None, None)
+
+
+def solvers_phase(kron, A_sym, dev, g, reset_counts, read_counts, cache: str) -> dict:
+    """The iterative solvers on the card through the HBP kernels (see the
+    module docstring, phase ``solvers``).  Returns each kernel's launches
+    over the phase."""
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    from repro_torch.core import build_tiles, enumerate_configs, tuned_partition_config
+    from repro_torch.serving import MatrixRegistry, cg_probe
+    from repro_torch.solvers import (aslinearoperator, bicgstab, block_jacobi, cg, chebyshev,
+                                     hash_group_blocks, jacobi, pagerank, power_iteration,
+                                     transition_matrix)
+    from repro_torch.solvers import base
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in SOLVER_KERNELS.values()}
+    u = 2.0 ** -24
+
+    def colnorm(v):
+        return torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=0)
+
+    def counted(run, kernels):
+        """One solve with the launch counters from 0 and every host sync
+        counted (set_sync_debug_mode("warn"))."""
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        counts = read_counts(kernels)
+        for name, n in counts.items():
+            totals[name] += n
+        return res, syncs, counts
+
+    def solve(label, run, *, kernels, setup, per_step, A64=None, b=None, converge=True,
+              profile=True):
+        """Run, check and time one solve; returns its result and a record."""
+        res, syncs, counts = counted(run, kernels)
+        it = int(res.iterations)
+        launched = sum(counts.values())
+        wasted = launched - setup - per_step * it
+        check(launched > 0, f"[solvers] {label}: no kernel launched: {counts}")
+        check(syncs >= 1 and wasted >= 0, f"[solvers] {label}: {syncs} syncs, {wasted} wasted")
+        if converge:
+            check(bool(res.converged), f"[solvers] {label}: did not converge in {it} steps")
+        rec = {"solve": label, "iterations": it, "converged": bool(res.converged),
+               "host_syncs": syncs, "launches": counts, "wasted_launches": wasted}
+        if A64 is not None:
+            xd, bd = res.x.double().reshape(b.shape[0], -1), b.double().reshape(b.shape[0], -1)
+            bn = colnorm(bd)
+            true_rel = colnorm(bd - A64.A @ xd) / bn
+            bound = res.residual.double().reshape(-1) / bn + GAP_FLOOR_FACTOR * u * colnorm(
+                A64.absA @ xd.abs()) / bn
+            check(bool(torch.all(true_rel <= bound)),
+                  f"[solvers] {label}: true residual {true_rel.max().item():.3e} over its "
+                  f"bound {bound.max().item():.3e}")
+            rec["true_residual"] = true_rel.max().item()
+            rec["residual_bound"] = bound.max().item()
+        rec["ms"] = timed_ms(run, 1, warmup=0)
+        rec["ms_per_iter"] = rec["ms"] / max(it, 1)
+        if profile:
+            hbp_ms, busy_ms = kernel_device_ms(run)
+            rec["kernel_share"] = None if hbp_ms is None else hbp_ms / rec["ms"]
+            rec["device_busy"] = None if busy_ms is None else busy_ms / rec["ms"]
+        share = rec.get("kernel_share")
+        log(f"[solvers] {label}: {it} iterations, converged={rec['converged']}, "
+            + (f"true residual {rec['true_residual']:.3e} (bound {rec['residual_bound']:.3e}), "
+               if A64 is not None else "")
+            + f"{rec['ms']:.3f} ms per solve, {rec['ms_per_iter']:.4f} ms per iteration (CUDA "
+            f"events), {syncs} host syncs, launches {counts} ({wasted} masked), HBP kernels "
+            + ("not measured" if share is None else
+               f"{100 * share:.1f} % of the solve, device busy {100 * rec['device_busy']:.1f} %"))
+        return res, rec
+
+    records = []
+    # --- CG, block CG and Chebyshev on 2D Poisson ------------------------
+    t0 = time.perf_counter()
+    P = poisson2d(SOLVER_GRID)
+    P_tiles = build_tiles(P, tuned_partition_config(P))
+    P64 = Float64Csr(P, dev)
+    n = P.shape[0]
+    log(f"[solvers] depth cut: CG and Chebyshev on Poisson {SOLVER_GRID}^2, not "
+        f"{CUT_FROM_GRID}^2 (its host-side tile build alone outlasts the phase's minute)")
+    log(f"[solvers] Poisson {SOLVER_GRID}^2: {n} rows, {P.nnz} stored entries, cfg "
+        f"{P_tiles.cfg}, {P_tiles.n_tiles} tiles, built in {time.perf_counter() - t0:.1f} s")
+    b1 = torch.randn(n, device=dev, generator=g)
+    b8 = torch.randn(n, 8, device=dev, generator=g)
+    for strategy in ("fused", "partials"):
+        op = aslinearoperator(P_tiles, strategy=strategy, device=dev)
+        for b in (b1, b8):
+            k = 1 if b.dim() == 1 else b.shape[1]
+            res, rec = solve(f"CG poisson{SOLVER_GRID} k={k} {strategy}",
+                             lambda: cg(op, b, tol=1e-5, maxiter=8000),
+                             kernels=(SOLVER_KERNELS[strategy, k > 1],), setup=1, per_step=1,
+                             A64=P64, b=b)
+            records.append(rec)
+            if strategy == "fused" and k == 1:
+                cg_default = res
+        # Chebyshev: lam_max = 8 (Gershgorin), lam_min = 8 / 30, 40 steps
+        cheb = dict(lam_min=8.0 / 30, lam_max=8.0, tol=0.0, maxiter=40)
+        res, rec = solve(f"Chebyshev40 poisson{SOLVER_GRID} {strategy}",
+                         lambda: chebyshev(op, b1, **cheb),
+                         kernels=(SOLVER_KERNELS[strategy, False],), setup=1, per_step=1,
+                         A64=P64, b=b1, converge=False)
+        check(int(res.iterations) == 40, f"Chebyshev ran {int(res.iterations)} steps, not 40")
+        plain = chebyshev(plain_operator(P_tiles, strategy, dev), b1, **cheb)
+        err = (res.x - plain.x).abs()
+        check(bool(torch.all(err <= 1e-4 * (plain.x.abs() + plain.x.abs().max()))),
+              f"Chebyshev {strategy}: {err.max().item():.3e} from the plain versions")
+        log(f"[solvers] Chebyshev40 {strategy}: within rtol=1e-4 of the same run on the plain "
+            f"versions on the card (max abs diff {err.max().item():.3e}); residual "
+            f"{res.history[0].item():.4e} -> {res.history[40].item():.4e}")
+        records.append(rec)
+        del op
+
+    # CHECK_EVERY: the same CG solve, bit for bit, at each value
+    op = aslinearoperator(P_tiles, strategy="fused", device=dev)
+    default_every = base.CHECK_EVERY
+    sweep = {every: {"ms": []} for every in CHECK_EVERY_SWEEP}
+    run = lambda: cg(op, b1, tol=1e-5, maxiter=8000)  # noqa: E731
+    try:
+        # host-bound solves drift within a process: time the values in
+        # turn, up the sweep and back down
+        for every in CHECK_EVERY_SWEEP + CHECK_EVERY_SWEEP[::-1]:
+            base.CHECK_EVERY = every
+            if "host_syncs" not in sweep[every]:
+                res, syncs, counts = counted(run, ("hbp_spmv_fused",))
+                check(torch.equal(res.x, cg_default.x)
+                      and int(res.iterations) == int(cg_default.iterations),
+                      f"CG at CHECK_EVERY={every} differs from the default's bits")
+                sweep[every].update(host_syncs=syncs, wasted_launches=(
+                    counts["hbp_spmv_fused"] - 1 - int(res.iterations)))
+            sweep[every]["ms"].append(timed_ms(run, 1, warmup=0))
+    finally:
+        base.CHECK_EVERY = default_every
+    log(f"[solvers] CHECK_EVERY sweep, CG poisson{SOLVER_GRID} k=1 fused "
+        f"({int(cg_default.iterations)} iterations, x bitwise equal at every value; default "
+        f"{default_every}; ms per solve up the sweep / down it): " + "; ".join(
+            f"{e}: {v['ms'][0]:.3f} / {v['ms'][1]:.3f} ms, {v['host_syncs']} syncs, "
+            f"{v['wasted_launches']} masked launches" for e, v in sweep.items()))
+    log(f"[solvers] CG, Chebyshev and the sweep: {time.perf_counter() - t0:.1f} s")
+    del op, P64, P_tiles, P, b1, b8
+
+    # --- preconditioned CG on a badly scaled Poisson ---------------------
+    t0 = time.perf_counter()
+    P = poisson2d(PCG_GRID)
+    d = 10.0 ** np.random.default_rng(17).uniform(-2, 2, P.shape[0])
+    D = scaled(P, d)
+    D_tiles = build_tiles(D, tuned_partition_config(D))
+    D64 = Float64Csr(D, dev)
+    blocks = hash_group_blocks(D_tiles)
+    M_jac, M_bj = jacobi(D, device=dev), block_jacobi(D, blocks=blocks, device=dev)
+    log(f"[solvers] D A D on Poisson {PCG_GRID}^2, d log-uniform over [1e-2, 1e2]: "
+        f"{D.shape[0]} rows, {len(blocks)} hash-group blocks, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b = torch.randn(D.shape[0], device=dev, generator=g)
+    op = aslinearoperator(D_tiles, strategy="fused", device=dev)
+    plain_cg, _ = solve(f"CG (no M) scaled poisson{PCG_GRID} fused",
+                        lambda: cg(op, b, tol=1e-5, maxiter=4000),
+                        kernels=("hbp_spmv_fused",), setup=1, per_step=1, converge=False,
+                        profile=False)
+    plain_op = plain_operator(D_tiles, "fused", dev)
+    for name, M in (("jacobi", M_jac), ("block-jacobi", M_bj)):
+        res, rec = solve(f"PCG {name} scaled poisson{PCG_GRID} fused",
+                         lambda: cg(op, b, tol=1e-5, maxiter=4000, M=M),
+                         kernels=("hbp_spmv_fused",), setup=1, per_step=1, A64=D64, b=b)
+        records.append(rec)
+        it = int(res.iterations)
+        check(it < int(plain_cg.iterations),
+              f"PCG {name}: {it} iterations, plain CG {int(plain_cg.iterations)}")
+        ref_it = int(cg(plain_op, b, tol=1e-5, maxiter=4000, M=M).iterations)
+        check(abs(it - ref_it) <= 0.02 * ref_it,
+              f"PCG {name}: {it} iterations, {ref_it} on the plain versions")
+        log(f"[solvers] PCG {name}: {it} iterations against {int(plain_cg.iterations)} for CG "
+            f"without M (converged={bool(plain_cg.converged)}, capped at 4000) and {ref_it} on "
+            "the plain versions on the card (within 2 %)")
+    del op, plain_op, D64, D_tiles, M_jac, M_bj
+    log(f"[solvers] PCG: {time.perf_counter() - t0:.1f} s")
+
+    # --- BiCGSTAB on the shifted circuit matrix ---------------------------
+    from repro_torch.core.matrices import SUITE_SPECS
+
+    t0 = time.perf_counter()
+    C = SUITE_SPECS["m11_rajat21"](0)
+    N = shifted(C, 1.5 * float(np.abs(C.data).max()))
+    N_tiles = build_tiles(N, tuned_partition_config(N))
+    N64 = Float64Csr(N, dev)
+    B = torch.randn(N.shape[0], 8, device=dev, generator=g)
+    M = jacobi(N, device=dev)
+    log(f"[solvers] m11_rajat21 + 1.5 max|a| I: {N.shape[0]} rows, {N.nnz} entries, "
+        f"{N_tiles.n_tiles} tiles")
+    for strategy in ("fused", "partials"):
+        op = aslinearoperator(N_tiles, strategy=strategy, device=dev)
+        for bb in (B[:, 0].contiguous(), B):
+            wide = bb.dim() == 2
+            for mname, MM in (("", None), (" jacobi", M)):
+                _, rec = solve(f"BiCGSTAB{mname} rajat21 k={8 if wide else 1} {strategy}",
+                               lambda: bicgstab(op, bb, tol=1e-6, maxiter=500, M=MM),
+                               kernels=(SOLVER_KERNELS[strategy, wide],), setup=1, per_step=2,
+                               A64=N64, b=bb)
+                records.append(rec)
+    del op, N64, N_tiles
+    log(f"[solvers] BiCGSTAB: {time.perf_counter() - t0:.1f} s")
+
+    # --- PageRank on m4_kron16's transition matrix ------------------------
+    t0 = time.perf_counter()
+    Mt, dang = transition_matrix(kron)
+    M_tiles = build_tiles(Mt, tuned_partition_config(Mt))
+    S64 = scipy.sparse.csr_matrix((Mt.data, Mt.indices, Mt.indptr), shape=Mt.shape)
+    nk = Mt.shape[0]
+    pers = torch.rand(nk, 8, device=dev, generator=g) + 0.01
+    log(f"[solvers] transition matrix of m4_kron16: {nk} nodes, {Mt.nnz} edges, "
+        f"{int(dang.sum())} dangling, {M_tiles.n_tiles} tiles")
+    for strategy in ("fused", "partials"):
+        op = aslinearoperator(M_tiles, strategy=strategy, device=dev)
+        for P8 in (None, pers):
+            wide = P8 is not None
+            res, rec = solve(f"PageRank kron16 k={8 if wide else 1} {strategy}",
+                             lambda: pagerank(op, damping=0.85, personalization=P8,
+                                              dangling=dang, tol=1e-8),
+                             kernels=(SOLVER_KERNELS[strategy, wide],), setup=0, per_step=1)
+            # the same recurrence in float64 for the same number of steps
+            v = (np.full((nk, 1), 1.0 / nk) if P8 is None
+                 else P8.double().cpu().numpy() / P8.double().sum(0).cpu().numpy())
+            p = v.copy()
+            for _ in range(int(res.iterations)):
+                p = 0.85 * (S64 @ p + (dang.astype(np.float64) @ p) * v) + 0.15 * v
+            l1 = np.abs(res.x.double().cpu().numpy().reshape(nk, -1) - p).sum(0)
+            check(bool(np.all(l1 <= 1e-5)), f"PageRank {strategy}: L1 {l1.max():.3e} from f64")
+            rec["l1_vs_float64"] = float(l1.max())
+            log(f"[solvers] PageRank k={8 if wide else 1} {strategy}: L1 per column "
+                f"{l1.max():.3e} from the float64 recurrence (scipy.sparse) at "
+                f"{int(res.iterations)} steps")
+            records.append(rec)
+    del op, M_tiles
+    log(f"[solvers] PageRank: {time.perf_counter() - t0:.1f} s")
+
+    # --- power iteration on the symmetric R-MAT graph ---------------------
+    t0 = time.perf_counter()
+    A_tiles = build_tiles(A_sym, tuned_partition_config(A_sym))
+    lam_ref = float(scipy.sparse.linalg.eigsh(
+        scipy.sparse.csr_matrix((A_sym.data, A_sym.indices, A_sym.indptr), shape=A_sym.shape),
+        k=1, which="LA", return_eigenvectors=False)[0])
+    for strategy in ("fused", "partials"):
+        op = aslinearoperator(A_tiles, strategy=strategy, device=dev)
+        res, rec = solve(f"power iteration rmat_graph(1 << 16) {strategy}",
+                         lambda: power_iteration(op, tol=1e-6, maxiter=2000),
+                         kernels=(SOLVER_KERNELS[strategy, False],), setup=1, per_step=2)
+        lam = float(res.eigenvalue)
+        check(abs(lam - lam_ref) <= 1e-4 * lam_ref,
+              f"power iteration {strategy}: {lam} against eigsh {lam_ref}")
+        log(f"[solvers] power iteration {strategy}: lambda {lam:.6f}, eigsh {lam_ref:.6f} "
+            f"(rel diff {abs(lam - lam_ref) / lam_ref:.2e})")
+        records.append(rec)
+    del op, A_tiles
+    log(f"[solvers] power iteration: {time.perf_counter() - t0:.1f} s")
+
+    # --- the registry: measured search by CG time, then a PCG solve -------
+    P = poisson2d(PCG_GRID)
+    candidates = enumerate_configs(P.shape, row_blocks=(512,), col_blocks=(4096,),
+                                   lanes=(8, 16, 32))
+    reg = MatrixRegistry(device="cuda", cache_dir=cache, candidates=candidates,
+                         probe=cg_probe(iters=10))
+    plan = reg.admit(P, "poisson")
+    check(plan.autotune_searched and len(plan.provenance["trials"]) == len(candidates),
+          "the cg_probe search did not run")
+    log(f"[solvers] registry admitted Poisson {PCG_GRID}^2 by cg_probe(iters=10) "
+        f"({reg.probe.kind}) in {plan.preprocess_s:.1f} s: " + ", ".join(
+            f"lane {t['config']['lane']}: {t['objective_us']} us"
+            for t in plan.provenance["trials"]) + f"; chose {plan.cfg}")
+    b = torch.randn(P.shape[0], device=dev, generator=g)
+    _, rec = solve("CG plan.operator() M=plan.jacobi()",
+                   lambda: cg(plan.operator(), b, tol=1e-5, maxiter=4000, M=plan.jacobi()),
+                   kernels=("hbp_spmv_fused",), setup=1, per_step=1, A64=Float64Csr(P, dev),
+                   b=b)
+    records.append(rec)
+    for rec in records:
+        log("[solvers-json] " + json.dumps(rec))
+    log(f"[solvers] kernel launches over the phase: {totals}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def main() -> None:
@@ -928,6 +1348,11 @@ def main() -> None:
         train_phase(graph_regs, A, dev, g, wrappers, reset_counts, read_counts)
         del graph_regs
 
+        # --- solvers: CG, PCG, BiCGSTAB, Chebyshev, PageRank, power ------
+        solver_launches = solvers_phase(kron, A, dev, g, reset_counts, read_counts, cache)
+        for name, n in solver_launches.items():
+            check(n > 0, f"{name} was never launched on the solvers path")
+
     # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
     def csr_tensor(csr):
         return torch.sparse_csr_tensor(
@@ -974,6 +1399,8 @@ def main() -> None:
             "library_ms": library_ms, "matrix": label, "k": k,
             "nnz_bound_ms": nnz_bound, "card": smi_line,
         }
+        if name in solver_launches:
+            row["solver_launches"] = solver_launches[name]
         if "fused" in name:
             # the split runs' chunk partials, written by the chains and
             # read back by the fold (beside bound_ms, not in it)

@@ -6,7 +6,9 @@ partition, nonlinear hash reorder, packed tiles; the ``spmv``/``spmm``
 front door), ``kernels`` (device staging, the hand-written Hopper kernels
 and their plain PyTorch versions, the argmax SpMM and the autograd layer),
 ``graph`` (adjacencies, aggregation, GCN/GraphSAGE, and ``graph.train``:
-sampling, losses, the trainer), ``optim`` (AdamW), ``obs`` (telemetry)
-and ``serving`` (registry + micro-batching engine).  Entry points run on
+sampling, losses, the trainer), ``optim`` (AdamW), ``solvers`` (CG,
+BiCGSTAB, Chebyshev, power iteration, PageRank and the Jacobi
+preconditioners over the kernels), ``obs`` (telemetry) and ``serving``
+(registry + micro-batching engine).  Entry points run on
 the card unless the caller passes ``device="cpu"``.
 """

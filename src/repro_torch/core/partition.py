@@ -2,13 +2,13 @@
 
 The matrix is split into ``row_block × col_block`` tiles.  Column
 partitioning bounds the vector segment a block touches so it fits fast
-memory (GPU shared memory in the paper, VMEM on TPU); row partitioning
-bounds the scope of the hash reordering.
+memory (GPU shared memory in the paper); row partitioning bounds the
+scope of the hash reordering.
 
 The paper sets ``col_block = 4096`` (a vector segment of 4K doubles fits a
-warp's shared-memory budget) and ``row_block = 512``.  On TPU v5e a core has
-~128 MiB of VMEM, so a 4096-element f32 segment (16 KiB) is comfortably
-double-buffered; we keep the paper's defaults and expose them as knobs.
+warp's shared-memory budget) and ``row_block = 512``.  A 4096-element f32
+segment is 16 KiB, well inside one Hopper block's shared memory; we keep
+the paper's defaults and expose them as knobs.
 
 :func:`count_block_nnz` is the vectorised equivalent of the per-thread
 counting loop in Algorithm 2: for every row it locates the column-block

@@ -12,6 +12,7 @@ from .autotune import (
     AutotuneResult,
     Probe,
     autotune_partition,
+    cg_probe,
     matrix_hash,
     measure_k_tilings,
     pick_k_tiling,
@@ -35,6 +36,7 @@ __all__ = [
     "AutotuneResult",
     "Probe",
     "spmm_probe",
+    "cg_probe",
     "measure_k_tilings",
     "pick_k_tiling",
     "autotune_partition",

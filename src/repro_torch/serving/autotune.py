@@ -9,10 +9,13 @@ optimise.  :func:`autotune_partition` times every candidate from the
 keeps the fastest, caching the winner on disk keyed by the matrix's
 content hash so the next admission skips the search entirely.
 
-The objective is steady-state multiply time (one ``hbp_spmm`` launch at
-the traffic's typical RHS width), timed with CUDA events after a warm-up
-on the card and with the host clock on the CPU.  Entries this package
-writes live in their own files (``<hash>.torch.json``) and their search
+The default objective is steady-state multiply time (one ``hbp_spmm``
+launch at the traffic's typical RHS width); :func:`cg_probe` ranks by a
+fixed number of CG iterations instead.  Both are timed with CUDA events
+after a warm-up on the card and with the host clock on the CPU.  Every
+entry point here measures on the card unless the caller passes
+``device="cpu"``, and raises without one.  Entries this package writes
+live in their own files (``<hash>.torch.json``) and their search
 fingerprints name the framework and device type, so they never satisfy
 — or overwrite — entries of another implementation or device.
 """
@@ -42,6 +45,7 @@ __all__ = [
     "AutotuneResult",
     "Probe",
     "spmm_probe",
+    "cg_probe",
     "measure_k_tilings",
     "pick_k_tiling",
     "autotune_partition",
@@ -158,22 +162,79 @@ class Probe:
 
 
 def spmm_probe(
-    k: int = 8, strategy: str = "stable", k_tiling: str = "grid", device="cpu"
+    k: int = 8, strategy: str = "stable", k_tiling: str = "grid", device=None
 ) -> Probe:
     """The default serving objective: one steady-state k-wide SpMM launch
-    on ``device`` under ``strategy`` (any of ``ops.STRATEGIES``, the
-    ``"partials"`` split included).  The device type is part of the
-    fingerprint."""
+    on ``device`` (default: the card) under ``strategy`` (any of
+    ``ops.STRATEGIES``, the ``"partials"`` split included).  The device
+    type is part of the fingerprint."""
     ops.check_strategy(strategy, k_tiling)
-    dev_type = torch.device(device).type
-    params = (k, strategy, dev_type) if k <= K_CHUNK else (k, strategy, dev_type, k_tiling)
+    dev = ops.resolve_device(device)
+    params = (k, strategy, dev.type) if k <= K_CHUNK else (k, strategy, dev.type, k_tiling)
     return Probe(
         kind="spmm",
         measure=lambda csr, cfg, repeats: _measure_spmm_us(
-            csr, cfg, k, repeats, strategy, k_tiling=k_tiling, device=device
+            csr, cfg, k, repeats, strategy, k_tiling=k_tiling, device=dev
         ),
         params=params,
     )
+
+
+def cg_probe(
+    iters: int = 10, k: int = 1, strategy: Optional[str] = None, seed: int = 0, device=None
+) -> Probe:
+    """Solver-objective probe: the time of ``iters`` CG iterations.
+
+    Ranks candidate geometries by what an iterative-solver workload
+    actually pays — time to (a proxy for) tolerance rather than raw
+    multiply time, folding in the per-iteration vector work and, for
+    blocked RHS (``k > 1``), the SpMM amortization the solver sees.
+    ``tol=0`` pins the iteration count so every candidate runs exactly
+    ``iters`` steps of the same Krylov recurrence.  ``strategy`` defaults
+    to what a registry on ``device`` (default: the card) serves:
+    ``"fused"`` on the card, ``"stable"`` on the CPU.  The kind names the
+    solve, as in the JAX package; the params name the device type.
+    """
+    if strategy is not None:
+        ops.check_strategy(strategy)
+    dev = ops.resolve_device(device)
+    if strategy is None:
+        strategy = "fused" if dev.type == "cuda" else "stable"
+
+    def measure(csr: CSRMatrix, cfg: PartitionConfig, repeats: int) -> float:
+        from repro_torch.solvers import aslinearoperator, cg
+
+        op = aslinearoperator(build_tiles(csr, cfg), strategy=strategy, device=dev)
+        rng = np.random.default_rng(seed)
+        shape = (csr.n_rows,) if k == 1 else (csr.n_rows, k)
+        b = op.vector(rng.standard_normal(shape).astype(np.float32))
+        return _timed_us(dev, lambda: cg(op, b, tol=0.0, maxiter=iters), repeats)
+
+    return Probe(kind=f"cg{iters}x{k}_{strategy}", measure=measure, params=(dev.type,))
+
+
+def _timed_us(dev: torch.device, fn, repeats: int) -> float:
+    """Median microseconds of ``fn()`` over ``repeats`` calls after an
+    untimed warm-up call (kernel build and load outside the clock): CUDA
+    events around each call on the card, the host clock on the CPU."""
+    fn()
+    ts = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) * 1e3)  # ms -> us
+    else:
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(ts))
 
 
 def _measure_spmm_us(
@@ -183,37 +244,16 @@ def _measure_spmm_us(
     repeats: int,
     strategy: str,
     k_tiling: str = "grid",
-    device="cpu",
+    device=None,
 ) -> float:
-    """Median microseconds of one k-wide SpMM launch under ``cfg``.
-
-    On the card each repeat is timed with CUDA events around one launch,
-    after an untimed warm-up launch; on the CPU with the host clock.
-    """
-    tiles = build_tiles(csr, cfg)
-    dt = ops.device_tiles(tiles, device)
+    """Median microseconds of one k-wide SpMM launch under ``cfg`` on
+    ``device`` (default: the card), timed by :func:`_timed_us`."""
+    dt = ops.device_tiles(build_tiles(csr, cfg), device)
     x = torch.as_tensor(
         np.random.default_rng(0).standard_normal((csr.n_cols, k)).astype(np.float32)
     ).to(dt.device)
-    kw = dict(strategy=strategy, k_tiling=k_tiling)
-    ops.hbp_spmm(dt, x, **kw)  # warm-up: kernel build and load outside the clock
-    ts = []
-    if dt.device.type == "cuda":
-        torch.cuda.synchronize(dt.device)
-        for _ in range(repeats):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            ops.hbp_spmm(dt, x, **kw)
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end) * 1e3)  # ms -> us
-    else:
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            ops.hbp_spmm(dt, x, **kw)
-            ts.append((time.perf_counter() - t0) * 1e6)
-    return float(np.median(ts))
+    return _timed_us(
+        dt.device, lambda: ops.hbp_spmm(dt, x, strategy=strategy, k_tiling=k_tiling), repeats)
 
 
 def measure_k_tilings(
@@ -223,7 +263,7 @@ def measure_k_tilings(
     k: int = _K_WIDE,
     strategy: str = "stable",
     repeats: int = 3,
-    device="cpu",
+    device=None,
 ) -> Optional[dict]:
     """Measured microseconds per launch-geometry contract, or ``None``.
 
@@ -235,6 +275,7 @@ def measure_k_tilings(
     keeps the default.
     """
     ops.check_strategy(strategy)
+    device = ops.resolve_device(device)
     if k <= K_CHUNK or strategy == "stable":
         return None
     return {
@@ -250,7 +291,7 @@ def pick_k_tiling(
     k: int = _K_WIDE,
     strategy: str = "stable",
     repeats: int = 3,
-    device="cpu",
+    device=None,
 ) -> str:
     """``"grid"`` or ``"loop"``, whichever served the faster wide-k launch
     (``"grid"`` when :func:`measure_k_tilings` has nothing to measure)."""
@@ -274,13 +315,13 @@ def autotune_partition(
     strategy: str = "stable",
     k_tiling: str = "grid",
     probe: Optional[Probe] = None,
-    device="cpu",
+    device=None,
 ) -> AutotuneResult:
     """Pick a :class:`PartitionConfig` for ``csr``, cheapest source first.
 
     1. on-disk cache hit for the matrix's content hash → no search;
     2. ``search=True`` → time every candidate (``enumerate_configs`` by
-       default) on ``device`` and keep the fastest;
+       default) on ``device`` (default: the card) and keep the fastest;
     3. ``search=False`` → the ``tuned_partition_config`` nnz-profile
        heuristic.
 
@@ -290,6 +331,7 @@ def autotune_partition(
     candidate space under the same objective (probe, width, strategy and
     device type); a mismatched admission re-searches and overwrites.
     """
+    device = ops.resolve_device(device)
     cache = cache or AutotuneCache()
     key = key or matrix_hash(csr)
     if probe is None:
@@ -335,7 +377,7 @@ def autotune_partition(
         search_sp.annotate(best_us=round(best_us, 1))
     trials.sort(key=lambda t: (t["objective_us"], sorted(t["config"].items())))
     if best_cfg is None:  # empty candidate list: fall back to the heuristic
-        return autotune_partition(csr, key=key, cache=cache, search=False)
+        return autotune_partition(csr, key=key, cache=cache, search=False, device=device)
     from repro_torch.obs.flight import get_flight
 
     get_flight().record(

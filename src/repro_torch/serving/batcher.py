@@ -1,10 +1,10 @@
 """Micro-batching of concurrent SpMV requests into ``[n, k]`` SpMM blocks.
 
 The HBP format's dominant per-multiply cost is streaming the tile arrays
-from HBM; the SpMM kernel reads that stream once for all ``k`` RHS columns
-(bench_solvers measures ~5x at k=8).  Serving traffic realises the same
-win by coalescing: requests against the same matrix that arrive within a
-small window are stacked column-wise and served by one kernel launch.
+from device memory; the SpMM kernel reads that stream once for all ``k``
+RHS columns.  Serving traffic realises the same win by coalescing:
+requests against the same matrix that arrive within a small window are
+stacked column-wise and served by one kernel launch.
 
 :class:`MicroBatcher` is the pure queueing policy — no kernels, no clocks
 of its own, so it is exactly testable:
@@ -14,7 +14,7 @@ of its own, so it is exactly testable:
   or when its oldest request has waited ``max_wait_s`` (deadline flush:
   bounded worst-case queueing latency under thin traffic);
 * drained batches are stacked into ``[n, k]`` blocks whose k the engine
-  pads to the serving buckets (:data:`repro.kernels.ops.K_BUCKETS`).
+  pads to the serving buckets (:data:`repro_torch.kernels.ops.K_BUCKETS`).
 """
 from __future__ import annotations
 

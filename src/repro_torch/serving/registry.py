@@ -42,15 +42,6 @@ from .eviction import LRUEvictor, plan_device_bytes
 
 __all__ = ["MatrixPlan", "MatrixRegistry"]
 
-# parts of the JAX registry's surface not ported yet, by ROADMAP item
-_DEFERRED = {
-    "operator": "operator() (the solver LinearOperator) is not ported yet: "
-    "ROADMAP queue 1, item 5",
-    "jacobi": "jacobi() (the solver preconditioner) is not ported yet: "
-    "ROADMAP queue 1, item 5",
-}
-
-
 @dataclasses.dataclass
 class MatrixPlan:
     """Everything the serving path needs about one resident matrix."""
@@ -168,12 +159,28 @@ class MatrixPlan:
         )
 
     def operator(self):
-        """The plan as a solver LinearOperator — not ported yet."""
-        raise NotImplementedError(_DEFERRED["operator"])
+        """The plan as a solver-ready :class:`LinearOperator` on the plan's
+        device: every application is one launch on the resident tiles
+        (``matmat`` bucketed, as served)."""
+        from repro_torch.solvers.operator import LinearOperator
+
+        return LinearOperator(self.shape, matvec=self.matvec, matmat=self.matmat,
+                              device=self._staged().device)
 
     def jacobi(self):
-        """Jacobi preconditioner — not ported yet."""
-        raise NotImplementedError(_DEFERRED["jacobi"])
+        """Jacobi preconditioner from the admission-time diagonal, on the
+        plan's device."""
+        from repro_torch.solvers.precond import jacobi
+
+        return jacobi(self.diag, device=self._staged().device)
+
+    def _staged(self):
+        if self.device is None:
+            raise RuntimeError(
+                f"plan {self.name!r} is unstaged (evicted under the HBM budget); "
+                "get it again through MatrixRegistry.get()"
+            )
+        return self.device
 
 
 class MatrixRegistry:

@@ -315,12 +315,13 @@ def test_linked_pair_is_evicted_and_restaged_as_a_unit(tmp_path):
 
 
 def test_only_the_solver_surface_stays_deferred(tmp_path):
+    """No surface stays deferred: the solver surface is served too (the
+    operator applies the plan's own launches), beside the argmax."""
     reg = MatrixRegistry(device="cpu", cache_dir=tmp_path, search=False)
     plan = reg.admit(tg.power_law_graph(32, 3.0, seed=1), "p")
-    for method in (plan.operator, plan.jacobi):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            method()
     X = np.random.default_rng(0).standard_normal((32, 2)).astype(np.float32)
+    assert torch.equal(plan.operator()(torch.as_tensor(X)), plan.matmat(X))
+    assert plan.jacobi().shape == (32, 32)
     y, idx, coeff = tops.hbp_spmm_argmax(plan.device, X)
     assert idx.dtype == torch.int32 and y.shape == idx.shape == coeff.shape == (32, 2)
     assert torch.equal(y, plan.matmat(X, combine="max"))

@@ -580,3 +580,136 @@ def test_training_on_the_card_matches_the_cpu(cuda, tmp_path):
             hist[strategy] = np.array([m["loss"] for m in h])
         for strategy in ("fused", "partials"):
             np.testing.assert_allclose(hist[strategy], hist["stable"], rtol=1e-4)
+
+
+# --- the solvers on the card --------------------------------------------------
+
+
+def _solver_problems():
+    """Small well-conditioned systems and a PageRank matrix: ``(spd tiles,
+    spd csr, nonsymmetric tiles, transition tiles, dangling, nonsymmetric
+    csr)``."""
+    from repro_torch.solvers import transition_matrix
+
+    A = circuit(600, seed=1).to_dense()
+    spd = csr_from_dense((A @ A.T / 600 + np.eye(600)).astype(np.float32))
+    nonsym = csr_from_dense((A + (np.abs(A).sum(1).max() + 1) * np.eye(600)).astype(np.float32))
+    M, dang = transition_matrix(rmat(1 << 10, 9000, seed=9, symmetric=False))
+    cfg = PartitionConfig(row_block=64, col_block=256, group=8, lane=8)
+    return (build_tiles(spd, cfg), spd, build_tiles(nonsym, cfg), build_tiles(M, cfg), dang,
+            nonsym)
+
+
+def _solver_runs(dev, strategy):
+    """name -> (run, operator launches before the loop, per step, k)."""
+    from repro_torch import solvers as S
+
+    spd_t, spd, nonsym_t, M_t, dang, nonsym = _solver_problems()
+    op = S.aslinearoperator(spd_t, strategy=strategy, device=dev)
+    nop = S.aslinearoperator(nonsym_t, strategy=strategy, device=dev)
+    mop = S.aslinearoperator(M_t, strategy=strategy, device=dev)
+    rng = np.random.default_rng(15)
+    b = torch.as_tensor(rng.standard_normal(600).astype(np.float32), device=dev)
+    B = torch.as_tensor(rng.standard_normal((600, 4)).astype(np.float32), device=dev)
+    P = torch.as_tensor(rng.random((M_t.shape[0], 3)).astype(np.float32) + 0.01, device=dev)
+    jac = S.jacobi(spd, device=dev)
+    bj = S.block_jacobi(spd, blocks=S.hash_group_blocks(spd_t), device=dev)
+    return {
+        "cg": (lambda: S.cg(op, b, tol=1e-6), 1, 1, 1),
+        "cg-block": (lambda: S.cg(op, B, tol=1e-6), 1, 1, 4),
+        "pcg-jacobi": (lambda: S.cg(op, B, tol=1e-6, M=jac), 1, 1, 4),
+        "pcg-block-jacobi": (lambda: S.cg(op, b, tol=1e-6, M=bj), 1, 1, 1),
+        "bicgstab": (lambda: S.bicgstab(nop, b, tol=1e-6, M=S.jacobi(nonsym, device=dev)),
+                     1, 2, 1),
+        "bicgstab-block": (lambda: S.bicgstab(nop, B, tol=1e-6), 1, 2, 4),
+        "chebyshev": (lambda: S.chebyshev(op, b, lam_min=1.0, lam_max=40.0, tol=0.0,
+                                          maxiter=21), 1, 1, 1),
+        "power": (lambda: S.power_iteration(op, tol=1e-5, maxiter=500), 1, 2, 1),
+        "pagerank": (lambda: S.pagerank(mop, dangling=dang), 0, 1, 1),
+        "pagerank-block": (lambda: S.pagerank(mop, dangling=dang, personalization=P), 0, 1, 3),
+    }
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_solver_chunks_make_no_host_sync(cuda, monkeypatch, strategy):
+    """Every chunk of every solver runs under set_sync_debug_mode("error"):
+    the only host reads of a solve are the flag between chunks (and the
+    history's one read after the loop).  Each solve agrees with the same
+    solve on the CPU (the kernels' plain versions)."""
+    from repro_torch.solvers import base
+
+    orig = base._chunk
+    chunks = []
+
+    def guarded(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        chunks.append(args[5])
+        return out
+
+    cpu_runs = _solver_runs("cpu", strategy)
+    card_runs = _solver_runs(cuda, strategy)
+    for name, (run, *_) in card_runs.items():
+        run()  # warm-up: kernel build and load outside the guard
+        monkeypatch.setattr(base, "_chunk", guarded)
+        chunks.clear()
+        res = run()
+        monkeypatch.setattr(base, "_chunk", orig)
+        assert chunks, name
+        want = cpu_runs[name][0]()
+        assert int(res.iterations) == int(want.iterations), name
+        got, ref_x = res[0].cpu(), want[0]  # x, or the eigenvalue
+        _close(got, ref_x)
+
+
+@pytest.mark.parametrize("strategy,k", [("fused", 1), ("fused", 4), ("partials", 1),
+                                        ("partials", 4)])
+def test_solver_launch_counts_match_the_loop(cuda, strategy, k):
+    """During a solve a kernel's counter rises by exactly the launches the
+    solver loop issues: the operator applications before the loop, plus
+    those of every step it launched (the live steps and the masked tail of
+    the last chunk)."""
+    from repro_torch.solvers import base
+
+    kernel = {("fused", 1): hbp_spmv_fused, ("fused", 4): hbp_spmm_fused,
+              ("partials", 1): hbp_spmv_partials, ("partials", 4): hbp_spmm_partials}
+    runs = _solver_runs(cuda, strategy)
+    seen = 0
+    for name, (run, setup, per_step, width) in runs.items():
+        if (width == 1) != (k == 1):
+            continue
+        run()
+        counter = kernel[strategy, k]
+        before = counter.launches
+        res = run()
+        it = int(res.iterations)
+        maxiter = res.history.shape[0] - 1
+        steps = min(-(-it // base.CHECK_EVERY) * base.CHECK_EVERY, maxiter)
+        assert counter.launches - before == setup + per_step * steps, (name, it)
+        seen += 1
+    assert seen >= 4
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_plan_operator_is_the_tiles_operator_on_the_card(cuda, tmp_path, strategy):
+    """plan.operator() gives the bits of aslinearoperator over the plan's
+    tiles under the plan's strategy, and so does a preconditioned solve."""
+    from repro_torch.serving import MatrixRegistry
+    from repro_torch.solvers import aslinearoperator, cg, jacobi
+
+    spd_t, spd, *_ = _solver_problems()
+    reg = MatrixRegistry(device=cuda, cache_dir=tmp_path, search=False, strategy=strategy)
+    plan = reg.admit(spd, "spd")
+    op = aslinearoperator(plan.tiles, strategy=strategy, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    for shape in ((600,), (600, 3), (600, 8)):
+        x = torch.randn(*shape, device=cuda, generator=g)
+        assert torch.equal(plan.operator()(x), op(x)), shape
+    b = torch.randn(600, device=cuda, generator=g)
+    a = cg(plan.operator(), b, M=plan.jacobi())
+    c = cg(op, b, M=jacobi(plan.diag, device=cuda))
+    assert bool(a.converged) and int(a.iterations) == int(c.iterations)
+    assert torch.equal(a.x, c.x) and torch.equal(a.history.nan_to_num(), c.history.nan_to_num())

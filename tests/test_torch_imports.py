@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,7 +50,7 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
         "import repro_torch.serving, repro_torch.kernels, repro_torch.obs, repro_torch.core\n"
         "import repro_torch.graph, repro_torch.graph.train, repro_torch.optim\n"
         "import repro_torch.kernels.hbp_spmv, repro_torch.kernels.build\n"
-        "import repro_torch.kernels.autodiff, repro_torch.core.spmv\n"
+        "import repro_torch.kernels.autodiff, repro_torch.core.spmv, repro_torch.solvers\n"
         "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -99,3 +100,40 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         spmm(csr, torch.ones(8, 2), backend="cuda")
     assert NodeClassifierTrainer([4, 2], device="cpu").strategy == "stable"
     assert ops.device_tiles(tiles, "cpu").device == torch.device("cpu")
+
+
+def test_autotune_and_solvers_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
+    """Autotune's entry points and the solver surface measure and run on
+    the card unless given ``device="cpu"``; a bad strategy is refused
+    before any device check."""
+    from repro_torch import solvers
+    from repro_torch.core import PartitionConfig, build_tiles
+    from repro_torch.core.matrices import circuit
+    from repro_torch.serving import autotune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    csr = circuit(64, seed=1)
+    cfg = PartitionConfig(row_block=32, col_block=64, group=8, lane=8)
+    with pytest.raises(ValueError):
+        autotune.spmm_probe(strategy="bogus")
+    with pytest.raises(ValueError):
+        autotune.cg_probe(strategy="bogus")
+    for call in (
+        lambda: autotune.spmm_probe(),
+        lambda: autotune.cg_probe(),
+        lambda: autotune._measure_spmm_us(csr, cfg, 8, 1, "stable"),
+        lambda: autotune.measure_k_tilings(csr, cfg),
+        lambda: autotune.pick_k_tiling(csr, cfg),
+        lambda: autotune.autotune_partition(csr, cache=autotune.AutotuneCache(tmp_path)),
+        lambda: solvers.aslinearoperator(build_tiles(csr, cfg)),
+        lambda: solvers.aslinearoperator(csr),
+        lambda: solvers.aslinearoperator(csr.to_dense()),
+        lambda: solvers.jacobi(csr),
+        lambda: solvers.block_jacobi(csr),
+        lambda: solvers.cg(csr, np.ones(64, np.float32)),
+        lambda: solvers.pagerank(csr),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())  # nothing was measured or cached
+    assert autotune.spmm_probe(device="cpu").params[-1] == "cpu"
