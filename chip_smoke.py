@@ -66,7 +66,8 @@ Phases (any failure exits non-zero; none is caught):
    partials max also kernel 4 with its run combine (``runs_ms``) beside
    the plain combine it replaces (``plain_combine_ms``);
 
-and, run after phase 3 (zero, spmv) and after phase 6 (train, solvers):
+and, run after phase 3 (zero, spmv), after phase 5 (telemetry, distributed)
+and after phase 6 (train, solvers):
 
 * zero     — the signed-zero probe of ``tests/hub_runs.py`` (x = +0 and
   -0, so every product is a zero): kernels 3-4, their plain versions, the
@@ -118,7 +119,28 @@ and, run after phase 3 (zero, spmv) and after phase 6 (train, solvers):
   events), host syncs (``set_sync_debug_mode("warn")``), kernel launches
   and the masked ones after convergence, and the HBP kernels' share of the
   solve and the device's busy share (``torch.profiler``); the launch
-  counters must rise.
+  counters must rise;
+* telemetry — with ``repro_torch.obs`` enabled, ``MatrixRegistry`` /
+  ``ServingEngine`` serve 62 requests (batch widths 1..16) on
+  ``m4_kron16`` under ``"fused"`` and under ``"partials"`` (answers
+  finite, the first and last bitwise ``plan.matvec``).  Prints the
+  bandwidth attribution (achieved GB/s per matrix and strategy against the
+  card's spec from ``repro_torch.analysis.roofline.spec_for``) and the
+  explain report, which names the card's part; each row's launches must
+  equal the rise of its two kernels' launch counters and its roofline
+  fraction be at most 1.05 (more is a byte-count fault).  A
+  ``MetricsServer`` on 127.0.0.1 (port 0) is scraped, and
+  ``parse_openmetrics`` of the scrape must give the registry's ``attr.*``
+  values; the two strategies' snapshots are diffed (``diff_artifacts``);
+* distributed — ``repro_torch.core.distributed`` on ``m4_kron16`` under the
+  ``balanced`` and ``grid`` placements: world 1 under NCCL in this process
+  and, at the same time, world 2 under gloo in two spawned processes, both
+  on ``cuda:0`` (NCCL takes one card per rank; gloo reduces CUDA tensors
+  through the host).  Every rank's y must lie within ``1e-5 * (|A| |x|)``
+  of a float64 CSR product, equal rank 0's and its own second call
+  bitwise, and kernel 5 must launch twice on every rank; the children's
+  exit codes are checked.  Prints the loads' max/mean, the shard build
+  time, and per rank the matvec, kernel 5 and ``all_reduce`` times.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -174,23 +196,6 @@ def check(cond, msg: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-# device-memory rate (bytes/s) and float32 rate outside the tensor cores
-# (flop/s) of each part, from NVIDIA's data sheets
-PEAKS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-)
-
-
-def card_peaks(name: str):
-    for part, bw, flops in PEAKS:
-        if all(word in name for word in part.split()):
-            return part, bw, flops
-    fail(f"no peak rates known for {name!r}")
 
 
 def kernel_bytes(name: str, d, k: int) -> int:
@@ -305,6 +310,7 @@ def scatter_reference(y_bar, idx, coeff, n_cols: int):
 def train_phase(graph_regs, A_sym, dev, g, wrappers, reset_counts, read_counts) -> None:
     """GCN, SAGE-mean and SAGE-max training on the card at the ogbn-arxiv
     GraphSAGE widths (see the module docstring, phase ``train``)."""
+    from repro_torch.analysis.roofline import spec_for
     from repro_torch.graph import add_self_loops, normalize_adjacency, rmat_graph
     from repro_torch.graph import plan_diff_aggregator
     from repro_torch.graph.train import NodeClassifierTrainer
@@ -424,7 +430,7 @@ def train_phase(graph_regs, A_sym, dev, g, wrappers, reset_counts, read_counts) 
     T, group, _ = dt_a.data.shape
     # bytes the argmax must move at k = 256: the tiles, x, and y, idx, coeff
     bound = (dt_a.data.nbytes + dt_a.cols.nbytes + dt_a.colblock.nbytes
-             + n * GNN_DIMS[1] * 4 * 4) / card_peaks(torch.cuda.get_device_name(0))[1] * 1e3
+             + n * GNN_DIMS[1] * 4 * 4) / spec_for(torch.cuda.get_device_name(0)).hbm_bw * 1e3
     per_step = argmax_ms[GNN_DIMS[0]] + 2 * argmax_ms[GNN_DIMS[1]]  # three layers
     log(f"[train] argmax SpMM on A_ns: {argmax_ms[GNN_DIMS[0]]:.3f} ms at k={GNN_DIMS[0]}, "
         f"{argmax_ms[GNN_DIMS[1]]:.3f} ms at k={GNN_DIMS[1]} (bound {bound:.4f} ms); "
@@ -855,6 +861,221 @@ def solvers_phase(kron, A_sym, dev, g, reset_counts, read_counts, cache: str) ->
     return totals
 
 
+def telemetry_phase(kron, spec, reset_counts, read_counts, cache: str) -> dict:
+    """Serve ``m4_kron16`` with obs enabled under ``"fused"`` and
+    ``"partials"`` and read the telemetry back (see the module docstring,
+    phase ``telemetry``).  Returns each kernel's launches in the phase."""
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.analysis.diff import diff_artifacts, render_text
+    from repro_torch.obs.attribution import attribution_rows, render_attribution
+    from repro_torch.obs.export import parse_openmetrics, serve
+    from repro_torch.obs.planview import explain_report
+    from repro_torch.serving import MatrixRegistry, ServingEngine
+
+    t_phase = time.perf_counter()
+    kernels = {"fused": ("hbp_spmv_fused", "hbp_spmm_fused"),
+               "partials": ("hbp_spmv_partials", "hbp_spmm_partials")}
+    snaps, launched = {}, {}
+    for strategy, names in kernels.items():
+        obs.reset()
+        obs.enable()
+        try:
+            registry = MatrixRegistry(device="cuda", cache_dir=cache, search=False,
+                                      strategy=strategy)
+            plan = registry.admit(kron, "m4_kron16")
+            eng = ServingEngine(registry, max_batch=16, max_wait_s=0.0)
+            xrng = np.random.default_rng(8)
+            reset_counts()
+            sent = []
+            for size in (1, 16, 2, 11, 3, 8, 5, 16):  # 62 requests, batch widths 1..16
+                for _ in range(size):
+                    x = xrng.standard_normal(kron.shape[1]).astype(np.float32)
+                    sent.append((x, eng.submit("m4_kron16", x)))
+                eng.poll()
+            eng.flush()
+            counts = read_counts(names)
+            launched.update(counts)
+            for x, t in sent:
+                y = t.result()
+                check(y.shape == (kron.shape[0],) and np.all(np.isfinite(y)),
+                      f"[telemetry] {strategy}: bad answer")
+            # the served bits are plan.matvec's (the [serving] contract)
+            for x, t in (sent[0], sent[-1]):
+                check(np.array_equal(t.result(), plan.matvec(x).cpu().numpy()),
+                      f"[telemetry] {strategy}: served answer != plan.matvec")
+            # this registry's always-live counters beside the gated global
+            # ones (kernel traffic, spans, requests) of this strategy alone
+            snap = obs.collect()
+            snap["registries"] = [obs.registry().collect(), registry.metrics.collect()]
+            snaps[strategy] = snap
+        finally:
+            obs.disable()
+        rows = attribution_rows(snap, hw=spec)
+        check([(r["matrix"], r["strategy"]) for r in rows] == [("m4_kron16", strategy)],
+              f"[telemetry] attribution rows {rows}")
+        (row,) = rows
+        check(row["launches"] == sum(counts.values()) > 0,
+              f"[telemetry] {strategy}: {row['launches']} attributed launches, kernel "
+              f"counters rose by {counts}")
+        check(row["roofline_fraction"] is not None and row["roofline_fraction"] <= 1.05,
+              f"[telemetry] {strategy}: roofline fraction {row['roofline_fraction']} above "
+              "1.05 of the card's peak: the modeled byte count is wrong")
+        for line in render_attribution(rows, hw=spec).splitlines():
+            log(f"[telemetry] {line}")
+        log(f"[telemetry] {strategy}: {row['launches']} flushes = kernel launches {counts}; "
+            f"{row['bytes_modeled'] / 1e9:.3f} GB modeled in {row['measured_s'] * 1e3:.3f} ms "
+            f"measured: {row['achieved_gbps']:.3f} GB/s, {100 * row['roofline_fraction']:.2f} % "
+            f"of the {spec.name}'s {spec.hbm_bw / 1e12} TB/s")
+        text = explain_report(snap, "m4_kron16", hw=spec)
+        check(f"of {spec.name} HBM" in text, "[telemetry] explain does not name the card")
+        for line in text.splitlines():
+            log(f"[telemetry] {line}")
+        # the loopback scrape gives the snapshot's attr.* values
+        want = {(m["name"].replace(".", "_"), tuple(sorted(m["labels"].items()))): m["value"]
+                for m in registry.metrics.collect()["metrics"] if m["name"].startswith("attr.")}
+        with serve(port=0, addr="127.0.0.1", registries=[registry.metrics]) as srv:
+            with urllib.request.urlopen(srv.url, timeout=30) as resp:
+                fams = parse_openmetrics(resp.read().decode("utf-8"))
+        got = {(fam, tuple(sorted(s["labels"].items()))): s["value"]
+               for fam, f in fams.items() if fam.startswith("attr_") for s in f["samples"]}
+        check(got == want, f"[telemetry] scrape {got} != snapshot {want}")
+        log(f"[telemetry] {strategy}: the scrape of {srv.url} parses and gives the snapshot's "
+            f"{len(want)} attr.* values")
+        del eng, registry
+    obs.reset()
+    result = diff_artifacts(snaps["fused"], snaps["partials"])
+    for line in render_text(result, top=8).splitlines():
+        log(f"[telemetry] diff fused -> partials: {line}")
+    log(f"[telemetry] phase: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def sharded_runs(csr, cfg, x_np: np.ndarray, dev) -> dict:
+    """Both placements of ``csr`` over the current process group, on
+    ``dev``: y of two calls and what each took (see phase ``distributed``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import MODES, build_sharded_spmv, shard_tiles
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    x = torch.as_tensor(x_np, device=dev)
+    out, sh = {}, None
+    for mode in MODES:
+        t0 = time.perf_counter()
+        if sh is None:
+            sh = build_sharded_spmv(csr, cfg=cfg, mode=mode, device=dev)
+        else:
+            sh = shard_tiles(sh.tiles, mode=mode, device=dev)
+        build_s = time.perf_counter() - t0
+        before = K.hbp_spmv_partials.launches
+        y1 = sh.matvec(x)
+        y2 = sh.matvec(x)
+        launches = K.hbp_spmv_partials.launches - before
+
+        def wall_ms(fn, iters=20):
+            fn()
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(dev)
+            return (time.perf_counter() - t) / iters * 1e3
+
+        part = torch.zeros(sh.tiles.n_rowgroups, sh.tiles.cfg.group, device=dev)
+        out[mode] = {
+            "y": y1.cpu().numpy(), "bitwise": bool(torch.equal(y1, y2)), "launches": launches,
+            "loads": sh.loads.tolist(), "t_max": sh.t_max, "build_s": build_s,
+            "matvec_ms": wall_ms(lambda: sh.matvec(x)),
+            "kernel_ms": timed_ms(lambda: K.hbp_spmv_partials(sh.local, x), 20),
+            "all_reduce_ms": wall_ms(lambda: dist.all_reduce(part)),
+        }
+    return out
+
+
+def gloo_rank(rank: int, world: int, init: str, csr, cfg, x_np, path: str) -> None:
+    """One rank of the gloo group on ``cuda:0``; writes its runs to ``path``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    try:
+        res = sharded_runs(csr, cfg, x_np, torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+    with open(path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def distributed_phase(kron, cfg, dev) -> int:
+    """``m4_kron16`` sharded under both placements: world 1 under NCCL in
+    this process, world 2 under gloo in two processes on the same card
+    (see the module docstring, phase ``distributed``).  Returns kernel 5's
+    launches over every rank."""
+    import multiprocessing
+    import pickle
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    x_np = np.random.default_rng(9).standard_normal(kron.shape[1]).astype(np.float32)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        init = f"file://{tmp}/gloo_rendezvous"
+        paths = [f"{tmp}/rank{r}.pkl" for r in range(2)]
+        procs = [ctx.Process(target=gloo_rank, args=(r, 2, init, kron, cfg, x_np, paths[r]))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        # world 1 under NCCL here while the gloo ranks start
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous",
+                                world_size=1, rank=0)
+        try:
+            runs["nccl world 1"] = [sharded_runs(kron, cfg, x_np, dev)]
+        finally:
+            dist.destroy_process_group()
+        for p in procs:
+            p.join(timeout=600)
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+                p.join()
+            check(p.exitcode == 0, f"[distributed] gloo rank {r} exited with {p.exitcode}")
+        gloo = []
+        for path in paths:
+            with open(path, "rb") as f:
+                gloo.append(pickle.load(f))
+        runs["gloo world 2 on cuda:0"] = gloo
+        log(f"[distributed] both set-ups ran in {time.perf_counter() - t0:.1f} s")
+    ref64 = Float64Csr(kron, dev)
+    xd = torch.as_tensor(x_np, device=dev)[:, None]
+    for setup, ranks in runs.items():
+        for mode in ranks[0]:
+            for r, res in enumerate(ranks):
+                m = res[mode]
+                what = f"[distributed] {setup} {mode} rank {r}"
+                ref64.check(torch.as_tensor(m["y"], device=dev)[:, None], xd, what)
+                check(m["bitwise"], f"{what}: two calls differ")
+                check(np.array_equal(m["y"], ranks[0][mode]["y"]), f"{what}: y != rank 0's")
+                check(m["launches"] == 2, f"{what}: kernel 5 launched {m['launches']} times "
+                      "in two calls")
+            loads = np.asarray(ranks[0][mode]["loads"])
+            log(f"[distributed] {setup} {mode}: loads {loads.astype(int).tolist()} "
+                f"(max/mean {loads.max() / loads.mean():.4f}), t_max {ranks[0][mode]['t_max']}; "
+                + "; ".join(
+                    f"rank {r}: shard built in {res[mode]['build_s']:.2f} s, matvec "
+                    f"{res[mode]['matvec_ms']:.3f} ms, kernel 5 {res[mode]['kernel_ms']:.4f} ms, "
+                    f"all_reduce {res[mode]['all_reduce_ms']:.3f} ms, kernel 5 launches "
+                    f"{res[mode]['launches']}" for r, res in enumerate(ranks))
+                + "; within 1e-5 * (|A| |x|) of float64, two calls bitwise equal")
+    log(f"[distributed] phase: {time.perf_counter() - t_phase:.1f} s")
+    return sum(res[mode]["launches"] for ranks in runs.values() for res in ranks for mode in res)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -869,6 +1090,7 @@ def main() -> None:
         plan_aggregator,
         rmat_graph,
     )
+    from repro_torch.analysis.roofline import spec_for
     from repro_torch.kernels import build, ops, ref
 
     # the kernels' module (``repro_torch.kernels.hbp_spmv`` is also the name
@@ -901,10 +1123,12 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    part, peak_bw, peak_flops = card_peaks(kind)
+    spec = spec_for(kind)
+    peak_bw, peak_flops = spec.hbm_bw, spec.peak_flops
     log(f"[device] {smi_line}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {kind}; "
-        f"peaks of the {part}: {peak_bw / 1e12} TB/s, {peak_flops / 1e12} TFLOP/s f32")
+        f"peaks of the {spec.name} (repro_torch.analysis.roofline): {peak_bw / 1e12} TB/s, "
+        f"{peak_flops / 1e12} TFLOP/s f32")
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1259,6 +1483,10 @@ def main() -> None:
         serve_phase("serving", cache, None, ("hbp_spmv_fused", "hbp_spmm_fused"))
         serve_phase("partials", cache, "partials", ("hbp_spmv_partials", "hbp_spmm_partials"))
 
+        # --- telemetry and the distributed SpMV on m4_kron16 ----------------
+        telemetry_launches = telemetry_phase(kron, spec, reset_counts, read_counts, cache)
+        distributed_launches = {"hbp_spmv_partials": distributed_phase(kron, kron_cfg, dev)}
+
         # --- 6. graph: GraphSAGE and GCN forwards at full width -------------
         t0 = time.perf_counter()
         A = rmat_graph(1 << 16, 79.345703125, seed=4)
@@ -1399,8 +1627,11 @@ def main() -> None:
             "library_ms": library_ms, "matrix": label, "k": k,
             "nnz_bound_ms": nnz_bound, "card": smi_line,
         }
-        if name in solver_launches:
-            row["solver_launches"] = solver_launches[name]
+        for key, counts in (("solver_launches", solver_launches),
+                            ("telemetry_launches", telemetry_launches),
+                            ("distributed_launches", distributed_launches)):
+            if name in counts:
+                row[key] = counts[name]
         if "fused" in name:
             # the split runs' chunk partials, written by the chains and
             # read back by the fold (beside bound_ms, not in it)

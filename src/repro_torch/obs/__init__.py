@@ -1,8 +1,9 @@
 """Observability for the PyTorch port: spans, metrics, flight recorder.
 
 The port's own copy of the gated telemetry facade: admission stages, the
-serving hot loop and kernel launches report through this one surface.
-The OpenMetrics exporter and the text dashboard are not part of it yet.
+serving hot loop and kernel launches report through this one surface, and
+the paper's amortization ledger (preprocessing cost vs traffic served)
+falls out of its counters.
 
 **Off by default.**  ``enable()`` (or ``REPRO_OBS=1`` in the environment)
 turns it on; while disabled, :func:`span`, :func:`counter`,
@@ -25,7 +26,9 @@ Two kinds of state:
 
 Artifacts: :func:`write_trace` emits Chrome-trace JSON (load it at
 https://ui.perfetto.dev), :func:`write_events` the same events as JSONL,
-:func:`dump` the full metrics+span snapshot.
+:func:`dump` the full metrics+span snapshot, :func:`report` the text
+dashboard; :mod:`~repro_torch.obs.export` renders every registry as
+OpenMetrics text and serves it on a loopback scrape endpoint.
 """
 from __future__ import annotations
 
@@ -54,6 +57,11 @@ from .requesttrace import (  # noqa: F401
     new_context,
     waterfall,
 )
+from . import export  # noqa: F401  (repro_torch.obs.export.serve(port) is the API)
+# the dashboard module, bound under another name: the function report()
+# below keeps the package attribute ``report`` (importing the submodule
+# later would otherwise replace the function with the module)
+from . import report as _dashboard
 
 __all__ = [
     "enabled",
@@ -70,6 +78,7 @@ __all__ = [
     "flight",
     "request_log",
     "collect",
+    "report",
     "dump",
     "write_trace",
     "write_events",
@@ -96,6 +105,7 @@ __all__ = [
     "waterfall",
     "all_registries",
     "default_buckets",
+    "export",
 ]
 
 
@@ -240,10 +250,21 @@ def collect() -> dict:
     }
 
 
+def report(*, hw=None) -> str:
+    """The text dashboard over the live process state.
+
+    ``hw`` (a :class:`~repro_torch.analysis.roofline.HardwareSpec`) is the
+    roofline of the bandwidth-attribution table; None means the card's,
+    which is looked up only when the state holds ``attr.*`` counters.
+    """
+    return _dashboard.render(collect(), hw=hw)
+
+
 def dump(path) -> dict:
     """Write the full metrics+span snapshot as JSON; returns the snapshot.
 
-    The snapshot holds counters (registry hits/misses, kernel traffic), bucket
+    This is the artifact ``python -m repro_torch.analysis.report --obs PATH``
+    re-renders.  The snapshot holds counters (registry hits/misses, kernel traffic), bucket
     occupancy histograms, solver/training series, span aggregates, and
     the per-matrix amortized-preprocess ledger derived from them.
     """

@@ -19,14 +19,24 @@ registry's shared :class:`~repro_torch.obs.metrics.MetricRegistry`:
 
 Autotune decision provenance (which candidates were measured, what each
 cost, how ``k_tiling`` was picked) is published beside it.
+:func:`explain_report` joins the static picture with the *measured*
+``attr.*`` bandwidth-attribution counters into the per-matrix "why is
+this fast or slow" report ``python -m repro_torch.analysis.report
+--explain MATRIX`` renders.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["partition_quality", "register_plan_metrics"]
+__all__ = [
+    "partition_quality",
+    "register_plan_metrics",
+    "plan_metrics_from_snapshot",
+    "explain_report",
+    "explain",
+]
 
 # quality keys that become always-live ``plan.<key>`` gauges per matrix
 _GAUGE_KEYS = (
@@ -48,6 +58,10 @@ _GAUGE_KEYS = (
 # bounded sample fed to the plan.tile_occupancy histogram: enough for
 # stable percentiles, cheap enough for the per-admission budget
 _OCCUPANCY_SAMPLE = 256
+
+# imbalance verdict thresholds on the competitive ratio
+_BALANCED_BELOW = 1.15
+_MILD_BELOW = 1.5
 
 # at most this many autotune trials become labelled gauges (trials arrive
 # sorted fastest-first, so the winner and its nearest rivals always land;
@@ -239,3 +253,203 @@ def _config_label(cfg: dict) -> str:
         f"r{cfg.get('row_block', '?')}.c{cfg.get('col_block', '?')}"
         f".g{cfg.get('group', '?')}.l{cfg.get('lane', '?')}"
     )
+
+
+# --- snapshot joins (the explain() data plane) ------------------------------
+
+
+def plan_metrics_from_snapshot(snapshot: dict, matrix: str) -> dict:
+    """Every ``plan.*`` metric for ``matrix`` out of an ``obs.dump()``
+    snapshot: plain gauges as ``{short_name: value}``, the per-trial and
+    per-contract families as sorted ``(label, value)`` lists under
+    ``autotune_trials`` / ``k_tiling_us`` / ``k_tiling_choice``."""
+    out: dict = {"autotune_trials": [], "k_tiling_us": [], "k_tiling_choice": []}
+    for reg in snapshot.get("registries", []):
+        for m in reg.get("metrics", []):
+            name = m.get("name", "")
+            lab = m.get("labels") or {}
+            if lab.get("matrix") != matrix or not name.startswith("plan."):
+                continue
+            short = name[len("plan.") :]
+            if name == "plan.autotune_trial_us":
+                out["autotune_trials"].append((lab.get("config", "?"), m["value"]))
+            elif name == "plan.k_tiling_us":
+                out["k_tiling_us"].append((lab.get("k_tiling", "?"), m["value"]))
+            elif name == "plan.k_tiling_choice":
+                out["k_tiling_choice"].append(lab.get("k_tiling", "?"))
+            elif "value" in m:
+                out[short] = m["value"]
+    out["autotune_trials"].sort(key=lambda t: (t[1], t[0]))
+    out["k_tiling_us"].sort()
+    out["k_tiling_choice"].sort()
+    return out
+
+
+def _fmt(v, digits: int = 3) -> str:
+    if v is None:
+        return "n/a"
+    return f"{v:.{digits}f}"
+
+
+def _verdict(pm: dict) -> List[str]:
+    """The imbalance/cohesion verdict lines, n/a-safe."""
+    lines = []
+    cr = pm.get("competitive_ratio")
+    if cr is None:
+        lines.append("verdict: n/a — no partition-quality gauges in this dump")
+        return lines
+    if cr <= _BALANCED_BELOW:
+        lines.append(
+            f"verdict: balanced (competitive ratio {cr:.3f} <= "
+            f"{_BALANCED_BELOW}) — the partition is not the bottleneck"
+        )
+    elif cr <= _MILD_BELOW:
+        lines.append(
+            f"verdict: mildly imbalanced (competitive ratio {cr:.3f}) — "
+            "placement can still help; watch the dominant row groups"
+        )
+    else:
+        lines.append(
+            f"verdict: IMBALANCED (competitive ratio {cr:.3f} > {_MILD_BELOW}) "
+            "— a few blocks dominate; no schedule can recover this, "
+            "re-partition (smaller row_block / narrower lane) instead"
+        )
+    score = pm.get("cohesion_score")
+    if score is not None:
+        if score >= 1.2:
+            lines.append(
+                f"hash grouping is earning its keep: cohesion {score:.2f}x "
+                "the random-grouping baseline"
+            )
+        elif score <= 1.05:
+            lines.append(
+                f"hash grouping adds little here (cohesion {score:.2f}x "
+                "random) — rows are homogeneous or patterns are scattered"
+            )
+    return lines
+
+
+def explain_report(snapshot: dict, matrix: str, *, hw=None) -> str:
+    """The per-matrix "why is this fast or slow" report.
+
+    Joins three planes of one ``obs.dump()`` snapshot: the static
+    partition-quality gauges, the autotune decision provenance, and the
+    measured ``attr.*`` bandwidth attribution vs the modeled roofline of
+    ``hw`` (None: the card's spec, which raises without a card), whose
+    part the bandwidth lines name.  Every section renders "n/a" on missing
+    data (a dump taken before any traffic, or from a registry without plan
+    introspection) and all rows are deterministically ordered.
+    """
+    from repro_torch.analysis.roofline import card_spec
+
+    from .attribution import attribution_rows
+
+    hw = hw or card_spec()
+    pm = plan_metrics_from_snapshot(snapshot, matrix)
+    lines = [f"== explain: {matrix} =="]
+
+    # --- partition quality -------------------------------------------------
+    lines.append("-- partition quality --")
+    if pm.get("tiles") is None:
+        lines.append(
+            "  n/a — no plan.* gauges for this matrix in the dump (admit it "
+            "through a MatrixRegistry, then obs.dump() again)"
+        )
+    else:
+        lines.append(
+            f"  tiles={int(pm['tiles'])}  rowgroups={int(pm.get('rowgroups', 0))}  "
+            f"nnz_utilization={_fmt(pm.get('nnz_utilization'))}"
+        )
+        lines.append(
+            "  tile occupancy: "
+            f"p10={_fmt(pm.get('occupancy_p10'))} "
+            f"p50={_fmt(pm.get('occupancy_p50'))} "
+            f"p90={_fmt(pm.get('occupancy_p90'))} "
+            f"(mean {_fmt(pm.get('occupancy_mean'))}, "
+            f"min {_fmt(pm.get('occupancy_min'))})"
+        )
+        lines.append(
+            f"  rowgroup imbalance (max/mean cost): "
+            f"{_fmt(pm.get('rowgroup_imbalance'))}"
+        )
+        lines.append(
+            f"  competitive ratio (LPT makespan / ideal): "
+            f"{_fmt(pm.get('competitive_ratio'))}"
+        )
+        lines.append(
+            f"  hash-group cohesion: {_fmt(pm.get('cohesion'))} "
+            f"vs random {_fmt(pm.get('cohesion_random'))} "
+            f"(score {_fmt(pm.get('cohesion_score'), 2)}x)"
+        )
+
+    # --- autotune provenance ----------------------------------------------
+    lines.append("-- autotune provenance --")
+    searched = pm.get("autotune_searched")
+    if searched is None:
+        lines.append("  n/a — no autotune gauges for this matrix")
+    else:
+        if searched:
+            src = "measured search"
+        elif pm.get("autotune_cache_hit"):
+            src = "on-disk cache hit"
+        else:
+            src = "heuristic/pinned config"
+        evals = int(pm.get("autotune_evaluations") or 0)
+        obj = pm.get("autotune_objective_us")
+        lines.append(
+            f"  decision: {src}, {evals} candidate(s) measured"
+            + (f", winner objective {obj:.1f}us" if obj is not None else "")
+        )
+        trials = pm["autotune_trials"]
+        if trials:
+            best = trials[0][1]
+            for i, (label, us) in enumerate(trials):
+                delta = "winner" if i == 0 else f"+{100 * (us / best - 1):.1f}%"
+                lines.append(f"    {label:<24} {us:>10.1f}us  {delta}")
+        choice = pm["k_tiling_choice"]
+        kt_us = dict(pm["k_tiling_us"])
+        if kt_us:
+            measured = "  ".join(f"{kt}={us:.1f}us" for kt, us in sorted(kt_us.items()))
+            lines.append(
+                f"  k_tiling: {', '.join(choice) or '?'} (measured: {measured})"
+            )
+        elif choice:
+            lines.append(
+                f"  k_tiling: {', '.join(choice)} "
+                "(contracts coincide at the served width — no measurement needed)"
+            )
+
+    # --- measured traffic vs model ----------------------------------------
+    lines.append("-- measured traffic (modeled vs measured bandwidth) --")
+    rows = [r for r in attribution_rows(snapshot, hw=hw) if r["matrix"] == matrix]
+    if not rows:
+        lines.append("  n/a — no attr.* counters for this matrix (serve traffic first)")
+    for r in rows:
+        ach = r["achieved_gbps"]
+        frac = r["roofline_fraction"]
+        lines.append(
+            f"  strategy={r['strategy']} k_tiling={r['k_tiling']}: "
+            f"launches={r['launches']} "
+            f"modeled={1e3 * r['modeled_s']:.3f}ms measured={1e3 * r['measured_s']:.3f}ms "
+            f"achieved={'n/a' if ach is None else f'{ach:.3f}'} GB/s"
+            + (
+                ""
+                if frac is None
+                else f" = {100 * frac:.1f}% of {hw.name} HBM"
+            )
+            + ("  [BELOW-ROOFLINE]" if r["below_roofline"] else "")
+        )
+
+    # --- verdict -----------------------------------------------------------
+    lines.extend(_verdict(pm))
+    return "\n".join(lines) + "\n"
+
+
+def explain(matrix: str, snapshot: Optional[dict] = None, *, hw=None) -> str:
+    """Live convenience: explain ``matrix`` from the current process state
+    (or a provided ``obs.dump()`` snapshot)."""
+    if snapshot is None:
+        from repro_torch import obs
+
+        snapshot = obs.collect()
+    return explain_report(snapshot, matrix, hw=hw)

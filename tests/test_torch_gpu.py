@@ -713,3 +713,73 @@ def test_plan_operator_is_the_tiles_operator_on_the_card(cuda, tmp_path, strateg
     c = cg(op, b, M=jacobi(plan.diag, device=cuda))
     assert bool(a.converged) and int(a.iterations) == int(c.iterations)
     assert torch.equal(a.x, c.x) and torch.equal(a.history.nan_to_num(), c.history.nan_to_num())
+
+
+# --- telemetry against the card, and the distributed SpMV --------------------
+
+
+@pytest.mark.parametrize("strategy", ["fused", "partials"])
+def test_attribution_against_the_cards_spec(cuda, tmp_path, strategy):
+    """The attribution rows of served traffic take the card's spec by
+    default, count one launch per flush (the rise of the strategy's two
+    kernel counters) and stay under the card's peak rate."""
+    from repro_torch.analysis.roofline import spec_for
+    from repro_torch.obs.attribution import attribution_rows, render_attribution
+    from repro_torch.obs.planview import explain_report
+    from repro_torch.serving import MatrixRegistry, ServingEngine
+
+    kernels = {"fused": (hbp_spmv_fused, hbp_spmm_fused),
+               "partials": (hbp_spmv_partials, hbp_spmm_partials)}[strategy]
+    reg = MatrixRegistry(cache_dir=tmp_path, search=False, strategy=strategy)
+    A = circuit(20000, seed=4)
+    reg.admit(A, "a")
+    before = sum(k.launches for k in kernels)
+    eng = ServingEngine(reg, max_batch=16, max_wait_s=0.0)
+    rng = np.random.default_rng(2)
+    for burst in (1, 16, 3, 8, 1, 5):
+        tickets = [eng.submit("a", rng.standard_normal(A.shape[1]).astype(np.float32))
+                   for _ in range(burst)]
+        eng.poll()
+    eng.flush()
+    for t in tickets:
+        assert t.result().shape == (A.shape[0],)
+    launched = sum(k.launches for k in kernels) - before
+    snapshot = {"registries": [reg.metrics.collect()]}
+    spec = spec_for(torch.cuda.get_device_name(cuda))
+    (row,) = attribution_rows(snapshot)
+    assert row == attribution_rows(snapshot, hw=spec)[0]
+    assert row["strategy"] == strategy and row["launches"] == launched > 0
+    assert 0 < row["roofline_fraction"] <= 1.05, row
+    assert f"vs {spec.name}" in render_attribution([row])
+    assert f"of {spec.name} HBM" in explain_report(snapshot, "a")
+
+
+@pytest.mark.parametrize("mode", ["balanced", "grid"])
+def test_sharded_matvec_world_1_nccl_against_the_plain_version(cuda, tmp_path, mode):
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import build_sharded_spmv
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        A = circuit(6000, seed=5)
+        sh = build_sharded_spmv(A, cfg=PartitionConfig(row_block=256, col_block=1024),
+                                mode=mode)
+        assert sh.device.type == "cuda" and sh.loads.tolist() == [sh.tiles.n_tiles]
+        x = torch.randn(A.shape[1], device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(3))
+        before = hbp_spmv_partials.launches
+        y = sh.matvec(x)
+        assert hbp_spmv_partials.launches == before + 1
+        assert torch.equal(sh.matvec(x), y)
+        d = sh.local
+        nrg = sh.tiles.n_rowgroups
+        want = ref.unpermute(ref.segment_sum_sorted(
+            hbp_spmv_partials_plain(d, x), d.rowgroup, nrg + 1, d.rg_lengths)[:nrg],
+            d.perm, A.shape[0])
+        _close(y, want)
+        y64 = A.matvec(x.cpu().numpy().astype(np.float64))
+        assert np.abs(y.cpu().numpy() - y64).max() <= 1e-4 * np.abs(y64).max()
+    finally:
+        dist.destroy_process_group()

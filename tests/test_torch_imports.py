@@ -51,6 +51,8 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
         "import repro_torch.graph, repro_torch.graph.train, repro_torch.optim\n"
         "import repro_torch.kernels.hbp_spmv, repro_torch.kernels.build\n"
         "import repro_torch.kernels.autodiff, repro_torch.core.spmv, repro_torch.solvers\n"
+        "import repro_torch.core.distributed, repro_torch.analysis.report\n"
+        "import repro_torch.analysis.diff, repro_torch.obs.planview\n"
         "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -103,12 +105,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
 
 def test_autotune_and_solvers_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
-    """Autotune's entry points and the solver surface measure and run on
-    the card unless given ``device="cpu"``; a bad strategy is refused
-    before any device check."""
+    """Autotune's entry points, the solver surface and the distributed
+    SpMV measure and run on the card unless given ``device="cpu"``; a bad
+    strategy is refused before any device check."""
     from repro_torch import solvers
     from repro_torch.core import PartitionConfig, build_tiles
     from repro_torch.core.matrices import circuit
+    from repro_torch.core.distributed import build_sharded_spmv
     from repro_torch.serving import autotune
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,6 +135,7 @@ def test_autotune_and_solvers_default_to_the_card_and_raise_without_one(monkeypa
         lambda: solvers.block_jacobi(csr),
         lambda: solvers.cg(csr, np.ones(64, np.float32)),
         lambda: solvers.pagerank(csr),
+        lambda: build_sharded_spmv(csr, cfg=cfg),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

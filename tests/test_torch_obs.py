@@ -29,7 +29,8 @@ def enabled_obs():
 def test_disabled_facade_is_noop():
     obs.disable()
     assert obs.span("x") is obs.NOOP and obs.counter("c") is obs.NOOP
-    assert not hasattr(obs, "export") and not hasattr(obs, "report")
+    # the dashboard and the OpenMetrics exporter are part of the facade
+    assert callable(obs.report) and callable(obs.export.render_openmetrics)
 
 
 def test_enabled_facade_records_spans_and_counters(enabled_obs):
