@@ -67,7 +67,7 @@ Phases (any failure exits non-zero; none is caught):
    the plain combine it replaces (``plain_combine_ms``);
 
 and, run after phase 3 (zero, spmv), after phase 5 (telemetry, distributed)
-and after phase 6 (train, solvers):
+and after phase 6 (train, solvers, lm):
 
 * zero     — the signed-zero probe of ``tests/hub_runs.py`` (x = +0 and
   -0, so every product is a zero): kernels 3-4, their plain versions, the
@@ -141,6 +141,26 @@ and after phase 6 (train, solvers):
   bitwise, and kernel 5 must launch twice on every rank; the children's
   exit codes are checked.  Prints the loads' max/mean, the shard build
   time, and per rank the matvec, kernel 5 and ``all_reduce`` times.
+
+* lm       — the LM serving path (``examples/serve_pruned.py``'s
+  counterpart) at the full width of OLMo-1B (16 layers, d_model 2048,
+  16 heads x 128, d_ff 8192, vocab 50304, bf16, random weights from a
+  seed): ``Engine(EngineConfig(batch=4, max_len=256))`` serves 8 requests
+  of 12 prompt tokens and 16 new tokens each (the launcher's defaults),
+  printing prefill ms and decode ms per step (CUDA events around the
+  engine's steps) beside the decode bound (the bf16 weight bytes once over
+  the card's bandwidth), tok/s and peak memory; on an f32 copy of the
+  weights the prefill's and each cached decode step's logits equal a full
+  forward over the same tokens within ``rtol=1e-4, atol=1e-4 *
+  max|logits|``; the ``wg``, ``w1`` and ``w2`` of all 16 layers are pruned
+  to 90 % and admitted as ``SparseLinear`` (48 layers, host build seconds
+  printed), each held at k = 1, 4 and 48 against the pruned dense product
+  and against its plain version (``backend="torch"`` on the card) within
+  ``1e-5 * (|x| |W_pruned|^T)``, its k = 4 SpMM columns bit for bit the
+  per-token SpMVs, and kernels 1-2 must launch; ``[lm-times]`` rows time
+  ``SparseLinear.apply`` at k = 1 and 4 on one matrix of each shape beside
+  its plain version, the dense bf16 and f32 products, the
+  ``torch.sparse_csr_tensor`` product and the kernel's bytes bound.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1076,6 +1096,238 @@ def distributed_phase(kron, cfg, dev) -> int:
     return sum(res[mode]["launches"] for ranks in runs.values() for res in ranks for mode in res)
 
 
+# --- the LM serving path ----------------------------------------------------
+
+# The launcher's defaults (python -m repro_torch.launch.serve): 8 requests of
+# 12 prompt tokens, 16 new tokens each, decode batch 4, cache of 256.
+LM_ARCH = "olmo-1b"
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH, LM_MAX_LEN = 8, 12, 16, 4, 256
+LM_SPARSITY = 0.9
+LM_WIDTHS = (1, 4, 48)  # one token, the decode batch, the prefill's 4 x 12
+
+
+def lm_phase(dev, spec, smi_line, reset_counts, read_counts) -> dict:
+    """OLMo-1B at full width on the card (see the module docstring, phase
+    ``lm``).  Returns the launches of kernels 1-2 during the pruned FFN
+    projections' applies."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparse_linear import SparseLinear, magnitude_prune
+    from repro_torch.models import build_model, tree_map
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.nbytes for t in leaves)
+    # the embedding table is padded to padded_vocab rows (50304 -> 50432)
+    want = cfg.param_count() + (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+    check(n_params == want and all(t.dtype == torch.bfloat16 for t in leaves),
+          f"[lm] {n_params} parameters, expected {want} in bf16")
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded to "
+        f"{cfg.padded_vocab}), {cfg.norm}, tied "
+        f"{cfg.tie_embeddings}: {n_params} parameters, {weight_bytes} B in bf16, built on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+
+    # --- 1. serve 8 requests through the engine --------------------------
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32) for _ in range(LM_REQUESTS)]
+    engine = Engine(model, params, EngineConfig(batch=LM_BATCH, max_len=LM_MAX_LEN), device=dev)
+    engine.generate([Request(prompt=p.copy(), max_new=2) for p in prompts[:LM_BATCH]])  # warm-up
+    events = {"prefill": [], "decode": []}
+
+    def evented(fn, sink):
+        def f(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            sink.append((start, end))
+            return out
+        return f
+
+    engine._prefill = evented(engine._prefill, events["prefill"])
+    engine._decode = evented(engine._decode, events["decode"])
+    reqs = [Request(prompt=p.copy(), max_new=LM_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    outs = np.stack([r.out for r in reqs])
+    check(outs.shape == (LM_REQUESTS, LM_NEW) and outs.min() >= 0 and outs.max() < cfg.vocab,
+          f"[lm] bad tokens {outs.shape}")
+    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in events.items()}
+    check(len(ms["prefill"]) == LM_REQUESTS // LM_BATCH and len(ms["decode"]) == LM_REQUESTS
+          // LM_BATCH * LM_NEW, f"[lm] steps {[len(v) for v in ms.values()]}")
+    prefill_ms, decode_ms = float(np.mean(ms["prefill"])), float(np.mean(ms["decode"]))
+    decode_bound = weight_bytes / spec.hbm_bw * 1e3
+    tokens = LM_REQUESTS * LM_NEW
+    log(f"[lm] served {LM_REQUESTS} requests ({LM_PROMPT} prompt tokens, {LM_NEW} new each, "
+        f"batch {LM_BATCH}, max_len {LM_MAX_LEN}) on {smi_line}: prefill {prefill_ms:.3f} ms "
+        f"(mean of {len(ms['prefill'])}), decode {decode_ms:.3f} ms per step (mean of "
+        f"{len(ms['decode'])}, min {min(ms['decode']):.3f}, max {max(ms['decode']):.3f}) against "
+        f"a bound of {decode_bound:.3f} ms (the bf16 weights read once over the {spec.name}'s "
+        f"{spec.hbm_bw / 1e12} TB/s); {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+        f"tok/s; peak memory {peak} B ({peak / 2**30:.2f} GiB); first tokens {outs[0, :8].tolist()}")
+    # one more decode step under the profiler: the card's busy share of it
+    cache = model.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+    cur = torch.as_tensor(outs[:LM_BATCH, :1], dtype=torch.int64, device=dev)
+    step16 = make_decode_step(model)
+    t0 = time.perf_counter()
+    step16(engine.params, cache, cur, LM_PROMPT)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _, busy_ms = kernel_device_ms(lambda: step16(engine.params, cache, cur, LM_PROMPT))
+    busy = "not measured (no device time in the profile)" if busy_ms is None else (
+        f"{busy_ms:.3f} ms of device time in all kernels ({busy_ms / host_ms:.1%} of the step's "
+        f"{host_ms:.3f} ms host-clock time)")
+    log(f"[lm] one decode step under torch.profiler: {busy}")
+    del engine, cache
+
+    # --- 2. cached decode against a full forward ---------------------------
+    # Random weights drawn as the JAX package draws them (a 3-D attention
+    # weight's "fan_in" is its head count: wq's sigma is 1/4) saturate the
+    # softmax, so this random network amplifies rounding from layer to layer:
+    # two f32 orders of summation part by far more than 1e-4 at this width.
+    # The check therefore runs on a float64 copy of the weights, where the
+    # rounding stays far below the tolerance; the f32 copy's deviations are
+    # printed beside it.
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    V = cfg.vocab  # the padded columns hold -1e30
+    seq = torch.as_tensor(np.concatenate([np.stack(prompts[:LM_BATCH]), outs[:LM_BATCH]], 1),
+                          dtype=torch.int64, device=dev)  # [4, 28]
+
+    def decode_against_full(dtype):
+        """(worst |err| / max|logits| over the prefill's and the cached decode
+        steps' logits, within the tolerance?, the full forward's logits)."""
+        name = {torch.float32: "float32", torch.float64: "float64"}[dtype]
+        m = build_model(dataclasses.replace(cfg, dtype=name))
+        p = tree_map(lambda t: t.to(dtype), params)
+        with torch.no_grad():
+            full, _, _ = m.forward(p, {"tokens": seq})
+        cache = m.init_cache(LM_BATCH, LM_MAX_LEN, device=dev)
+        cache, last = make_prefill_step(m)(p, {"tokens": seq[:, :LM_PROMPT]}, cache)
+        worst, ok = 0.0, True
+        for s in range(LM_NEW):
+            pos = LM_PROMPT - 1 + s
+            want = full[:, pos, :V]
+            check(bool(torch.all(last[:, V:] == -1e30)), f"[lm] {name} step {s}: padded columns")
+            err = (last[:, :V] - want).abs()
+            ok &= bool(torch.all(err <= 1e-4 * want.abs() + 1e-4 * want.abs().max()))
+            worst = max(worst, err.max().item() / want.abs().max().item())
+            if s + 1 < LM_NEW:
+                cache, _, last = make_decode_step(m)(p, cache, seq[:, pos + 1 : pos + 2], pos + 1)
+        return worst, ok, full[..., :V]
+
+    worst64, ok64, full64 = decode_against_full(torch.float64)
+    check(ok64, f"[lm] float64 cached decode disagrees with the full forward (worst {worst64:.3e})")
+    worst32, ok32, full32 = decode_against_full(torch.float32)
+    drift = ((full32 - full64).abs().max() / full64.abs().max()).item()
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    log(f"[lm] float64 copy: the prefill's and {LM_NEW - 1} cached decode steps' logits equal a "
+        f"full forward over the same {seq.shape[1]} tokens within rtol=1e-4, atol=1e-4 * "
+        f"max|logits| over the {V} real columns (worst |err| / max|logits| {worst64:.2e}); the "
+        f"float32 copy (TF32 off, not gated): worst {worst32:.2e} ({'within' if ok32 else 'outside'}"
+        f" the tolerance), its full forward {drift:.2e} of max|logits| from float64's")
+    del full64, full32
+
+    # --- 3. prune and admit every FFN projection --------------------------
+    t0 = time.perf_counter()
+    layers = []  # (name, SparseLinear, pruned W as f64 on the card)
+    stack = params["dec"]["stack"]["l0"]["ffn"]
+    for g in range(cfg.n_layers):
+        for name in ("wg", "w1", "w2"):
+            w = stack[name][g].float().T.contiguous().cpu().numpy()  # [out, in]
+            layer = SparseLinear.from_dense(w, sparsity=LM_SPARSITY, device=dev)
+            pruned = torch.as_tensor(magnitude_prune(w, LM_SPARSITY), device=dev)
+            layers.append((f"l{g}.{name}", layer, pruned))
+    build_s = time.perf_counter() - t0
+    dens = [l.density() for _, l, _ in layers]
+    occ = [l.tiles.nnz_utilization() for _, l, _ in layers]
+    stream = layers[0][1].tiles.data.nbytes + layers[0][1].tiles.cols.nbytes
+    log(f"[lm] pruned {len(layers)} FFN projections (wg, w1, w2 of {cfg.n_layers} layers) to "
+        f"sparsity {LM_SPARSITY} and admitted them in {build_s:.1f} s on the host (prune, CSR, "
+        f"tiles at row_block 256 / col_block 512, staging): mean density {np.mean(dens):.4f}; "
+        f"{layers[0][1].tiles.n_tiles} tiles of {layers[0][1].tiles.cfg.group} x "
+        f"{layers[0][1].tiles.cfg.lane} each, slot occupancy {min(occ):.3f}-{max(occ):.3f}; one "
+        f"matrix's tile stream (f32 data + i32 cols) {stream} B beside {w.size * 2} B of dense bf16")
+
+    # --- 4. each projection against the pruned dense product ---------------
+    g_lm = torch.Generator(device=dev).manual_seed(9)
+    reset_counts()
+    worst = {k: 0.0 for k in LM_WIDTHS}
+    for label, layer, pruned in layers:
+        plain = dataclasses.replace(layer, backend="torch")
+        w64 = pruned.double()
+        for k in LM_WIDTHS:
+            x = torch.randn(k, layer.in_features, device=dev, generator=g_lm)
+            y = layer.apply(x)
+            check(y.shape == (k, layer.out_features) and y.dtype == torch.float32,
+                  f"[lm] {label} k={k}: {tuple(y.shape)} {y.dtype}")
+            bound = RTOL * (x.double().abs() @ w64.abs().T) + 1e-30
+            err = (y.double() - x.double() @ w64.T).abs()
+            check(bool(torch.all(err <= bound)),
+                  f"[lm] {label} k={k}: disagrees with the pruned dense product")
+            check(bool(torch.all((y.double() - plain.apply(x).double()).abs() <= bound)),
+                  f"[lm] {label} k={k}: disagrees with its plain version")
+            worst[k] = max(worst[k], float((err / bound).max()))
+            if k == 4:
+                for i in range(k):
+                    check(torch.equal(layer.apply(x[i]), y[i]),
+                          f"[lm] {label}: the SpMM column {i} is not the SpMV")
+    counts = read_counts(("hbp_spmv_fused", "hbp_spmm_fused"))
+    check(all(n > 0 for n in counts.values()), f"[lm] kernels 1-2 did not launch: {counts}")
+    log(f"[lm] every projection at k={list(LM_WIDTHS)} within 1e-5 * (|x| |W_pruned|^T) of the "
+        f"pruned dense product and of its plain version (backend='torch' on the card); worst "
+        f"|err| / bound {', '.join(f'k={k}: {v:.3f}' for k, v in worst.items())}; k=4 SpMM "
+        f"columns bit for bit the per-token SpMVs; launches {counts}")
+
+    # --- 5. times: the pruned layer beside the dense and CSR products -------
+    for label, layer, pruned in (layers[1], layers[2]):  # l0.w1 [8192, 2048], l0.w2 [2048, 8192]
+        plain = dataclasses.replace(layer, backend="torch")
+        dense16 = pruned.to(torch.bfloat16)  # the same matrix, dense, as served
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
+            csr = pruned.to_sparse_csr()
+        for k in (1, 4):
+            x = torch.randn(k, layer.in_features, device=dev, generator=g_lm)
+            x16, xt = x.to(torch.bfloat16), x.T.contiguous()
+            name = "hbp_spmv_fused" if k == 1 else "hbp_spmm_fused"
+            arg = x[0].contiguous() if k == 1 else xt
+            row = {
+                "layer": label, "shape": [layer.out_features, layer.in_features], "k": k,
+                "kernel_ms": timed_ms(lambda: getattr(K, name)(layer.dt, arg), 50),
+                "apply_ms": timed_ms(lambda: layer.apply(x), 50),
+                "plain_ms": timed_ms(lambda: plain.apply(x), 10),
+                "dense_bf16_ms": timed_ms(lambda: x16 @ dense16.T, 50),
+                "dense_f32_ms": timed_ms(lambda: x @ pruned.T, 50),
+                "csr_ms": timed_ms(lambda: csr @ xt, 50),
+                "bound_ms": kernel_bytes(name, layer.dt, k) / spec.hbm_bw * 1e3,
+                "dense_bf16_bound_ms": (dense16.nbytes + (x16.nbytes + k * layer.out_features
+                                                          * 2)) / spec.hbm_bw * 1e3,
+                "card": smi_line,
+            }
+            log("[lm-times] " + json.dumps(row))
+    log(f"[lm] phase took {time.perf_counter() - t_phase:.1f} s")
+    del layers, params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1581,6 +1833,9 @@ def main() -> None:
         for name, n in solver_launches.items():
             check(n > 0, f"{name} was never launched on the solvers path")
 
+    # --- lm: OLMo-1B served on the card, its FFNs pruned through kernels 1-2 --
+    lm_launches = lm_phase(dev, spec, smi_line, reset_counts, read_counts)
+
     # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
     def csr_tensor(csr):
         return torch.sparse_csr_tensor(
@@ -1629,7 +1884,8 @@ def main() -> None:
         }
         for key, counts in (("solver_launches", solver_launches),
                             ("telemetry_launches", telemetry_launches),
-                            ("distributed_launches", distributed_launches)):
+                            ("distributed_launches", distributed_launches),
+                            ("lm_launches", lm_launches)):
             if name in counts:
                 row[key] = counts[name]
         if "fused" in name:

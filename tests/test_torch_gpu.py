@@ -783,3 +783,73 @@ def test_sharded_matvec_world_1_nccl_against_the_plain_version(cuda, tmp_path, m
         assert np.abs(y.cpu().numpy() - y64).max() <= 1e-4 * np.abs(y64).max()
     finally:
         dist.destroy_process_group()
+
+
+# --- the LM serving path on the card ----------------------------------------
+
+
+def test_sparse_linear_on_the_card_matches_its_plain_version(cuda):
+    from repro_torch.core.sparse_linear import SparseLinear, magnitude_prune
+
+    w = np.random.default_rng(15).standard_normal((1024, 700)).astype(np.float32)
+    layer = SparseLinear.from_dense(w, sparsity=0.9, device=cuda)
+    plain = SparseLinear.from_dense(w, sparsity=0.9, backend="torch", device=cuda)
+    host = SparseLinear.from_dense(w, sparsity=0.9, device="cpu")  # the kernels' plain versions
+    pruned = torch.as_tensor(magnitude_prune(w, 0.9), dtype=torch.float64, device=cuda)
+    hbp_spmv_fused.launches = hbp_spmm_fused.launches = 0
+    for k in (1, 4):
+        x = torch.randn(k, 700, device=cuda, generator=torch.Generator(device=cuda).manual_seed(k))
+        y = layer.apply(x)
+        bound = 1e-5 * (x.double().abs() @ pruned.abs().T) + 1e-30
+        for other in (x.double() @ pruned.T, plain.apply(x).double(),
+                      host.apply(x.cpu()).to(cuda).double()):
+            assert bool(torch.all((y.double() - other).abs() <= bound))
+        for i in range(k):
+            assert torch.equal(layer.apply(x[i]), y[i])
+    # k = 1: the layer's SpMV and the one per-token check; k = 4: one SpMM
+    # and four per-token SpMVs (the plain layers launch nothing)
+    assert hbp_spmv_fused.launches == 2 + 4 and hbp_spmm_fused.launches == 1
+
+
+def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, tree_map
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), n_layers=2, vocab=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(i).integers(0, 128, 6).astype(np.int32) for i in range(2)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        reqs = [Request(prompt=p.copy(), max_new=8) for p in prompts]
+        Engine(model, params, EngineConfig(batch=2, max_len=64), device=dev).generate(reqs)
+        outs[str(dev)] = np.stack([r.out for r in reqs])
+    # teacher-forced on the CPU's tokens: the logits agree, and the tokens
+    # wherever the CPU's top-2 gap leaves no near tie
+    fed = outs["cpu"]
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64)
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        cache = model.init_cache(2, 64, device=dev)
+        cache, last = make_prefill_step(model)(p, {"tokens": toks.to(dev)}, cache)
+        steps = [last.cpu()]
+        for s in range(7):
+            cur = torch.as_tensor(fed[:, s : s + 1], dtype=torch.int64, device=dev)
+            cache, _, last = make_decode_step(model)(p, cache, cur, 6 + s)
+            steps.append(last.cpu())
+        logits[str(dev)] = torch.stack(steps, 1)  # [2, 8, padded vocab]
+    # the padded columns hold -1e30 in both; the 128 real ones agree
+    assert bool(torch.all(logits["cuda"][..., 128:] == -1e30))
+    want, got = logits["cpu"][..., :128], logits["cuda"][..., :128]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > 1e-3).numpy()
+    assert clear.mean() > 0.5
+    for i in range(2):
+        n = 8 if clear[i].all() else int(np.argmin(clear[i]))
+        assert np.array_equal(outs["cuda"][i, :n], fed[i, :n])

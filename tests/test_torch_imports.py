@@ -27,6 +27,15 @@ def _port_files():
     return files
 
 
+def test_the_scan_covers_the_lm_modules():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    for want in ("configs/base.py", "configs/olmo_1b.py", "models/params.py",
+                 "models/attention.py", "models/transformer.py", "models/model.py",
+                 "serve/engine.py", "serve/steps.py", "launch/serve.py",
+                 "core/sparse_linear.py"):
+        assert want in names, want
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     src = path.read_text()
@@ -53,6 +62,8 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
         "import repro_torch.kernels.autodiff, repro_torch.core.spmv, repro_torch.solvers\n"
         "import repro_torch.core.distributed, repro_torch.analysis.report\n"
         "import repro_torch.analysis.diff, repro_torch.obs.planview\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve, repro_torch.core.sparse_linear\n"
         "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -141,3 +152,36 @@ def test_autotune_and_solvers_default_to_the_card_and_raise_without_one(monkeypa
             call()
     assert not any(tmp_path.iterdir())  # nothing was measured or cached
     assert autotune.spmm_probe(device="cpu").params[-1] == "cpu"
+
+
+def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """The serving path's entry points (the model's init and cache, the
+    carry of JAX weights, the engine, the pruned layer and the launcher)
+    run on the card unless given ``device="cpu"``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model, params_from_arrays
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), n_layers=2, vocab=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    w = np.random.default_rng(0).standard_normal((64, 96)).astype(np.float32)
+    for call in (
+        lambda: model.init(torch.Generator().manual_seed(0)),
+        lambda: model.init_cache(2, 16),
+        lambda: params_from_arrays({"w": w}),
+        lambda: Engine(model, params, EngineConfig()),
+        lambda: SparseLinear.from_dense(w),
+        lambda: SparseLinear.from_dense(w, backend="torch"),
+        lambda: launch_serve.main(["--arch", "olmo-1b", "--smoke"]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert Engine(model, params, EngineConfig(), device="cpu").device == torch.device("cpu")
+    assert SparseLinear.from_dense(w, device="cpu").dt.device == torch.device("cpu")
+    assert params_from_arrays({"w": w}, device="cpu")["w"].device == torch.device("cpu")
