@@ -67,7 +67,7 @@ Phases (any failure exits non-zero; none is caught):
    the plain combine it replaces (``plain_combine_ms``);
 
 and, run after phase 3 (zero, spmv), after phase 5 (telemetry, distributed)
-and after phase 6 (train, solvers, lm):
+and after phase 6 (train, solvers, lm, lm-train):
 
 * zero     — the signed-zero probe of ``tests/hub_runs.py`` (x = +0 and
   -0, so every product is a zero): kernels 3-4, their plain versions, the
@@ -161,13 +161,39 @@ and after phase 6 (train, solvers, lm):
   ``SparseLinear.apply`` at k = 1 and 4 on one matrix of each shape beside
   its plain version, the dense bf16 and f32 products, the
   ``torch.sparse_csr_tensor`` product and the kernel's bytes bound.
+* lm-train — LM training (``python -m repro_torch.launch.train``'s path)
+  after the serving model is freed; no HBP kernel runs on it (the JAX
+  package differentiates the dense model).  OLMo-1B at full width and
+  depth in bf16 through ``Trainer``: 8 steps of
+  ``SyntheticLM(vocab=50304, seq_len=1024, global_batch=8, seed=0)`` in
+  two microbatches with remat (two-level: 4 x 4 groups), the launcher's
+  AdamW defaults with f32 moments; prints ms per step (CUDA events, the
+  median of steps 2-8), tokens/s, model TFLOP/s (6 N tokens plus the
+  attention products, recomputation not counted), peak memory and the
+  card's busy share of one profiled step, and checks every loss and grad
+  norm finite, the last loss below the first and the per-layer AdamW
+  update run on the three FFN stacks (3 leaves a step).  Then 2 steps with
+  int8 moments (peak memory beside the f32 run's).  At 2 layers, full
+  width, TF32 off and under ``torch.use_deterministic_algorithms``: one
+  float32 step against the same step in float64 (loss within 1e-4, grad
+  norm within 1e-3, and per leaf the rule of ``STEP_TOL``), ``remat=True``
+  bit for bit ``remat=False``, two microbatches against one (``STEP_TOL``),
+  and 6 steps straight bit for bit 3 steps, a checkpoint to a temporary
+  directory and a resume in a fresh ``Trainer`` (an op without a
+  deterministic CUDA implementation would be named, and the difference
+  printed instead).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 """
+import os
+
+# cuBLAS gives the same bits run to run only with a fixed workspace, which
+# must be set before the first product ([lm-train]'s restart check)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import importlib
 import json
-import os
 import subprocess
 import sys
 import tempfile
@@ -572,26 +598,35 @@ def plain_operator(tiles, strategy: str, dev):
         matmat=lambda x: ref.unpermute(hashed(x), dt.perm, n), device=dev)
 
 
-def kernel_device_ms(fn):
-    """(ms of the HBP kernels, ms of every kernel) on the card during one
-    call of ``fn`` (``torch.profiler``), or ``(None, None)`` when the
-    profiler records no device time."""
+def device_kernel_ms(fn) -> dict:
+    """{kernel name: ms of device time} on the card during one call of
+    ``fn`` (``torch.profiler``); empty when the profiler records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    hbp = total = 0.0
+    out = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "device_time_total", None)
         us = e.cuda_time_total if us is None else us
-        total += us
-        if "hbp_" in e.key:
-            hbp += us
-    return (hbp / 1e3, total / 1e3) if total > 0 else (None, None)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def kernel_device_ms(fn):
+    """(ms of the HBP kernels, ms of every kernel) on the card during one
+    call of ``fn``, or ``(None, None)`` when the profiler records no device
+    time."""
+    ms = device_kernel_ms(fn)
+    if not ms:
+        return None, None
+    return sum(v for k, v in ms.items() if "hbp_" in k), sum(ms.values())
 
 
 def solvers_phase(kron, A_sym, dev, g, reset_counts, read_counts, cache: str) -> dict:
@@ -1328,6 +1363,280 @@ def lm_phase(dev, spec, smi_line, reset_counts, read_counts) -> dict:
     return counts
 
 
+# [lm-train]: OLMo-1B trained through Trainer with the launcher's AdamW
+# defaults at 8 steps (python -m repro_torch.launch.train --steps 8)
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 8, 1024, 2
+LM_TRAIN_LAYERS_CHECKED = 2  # the float64, equivalence and restart checks
+LM_RESTART_AT = 3  # of 6 steps
+# the H100 SXM's published dense bf16 rate (NVIDIA data sheet), for the
+# model FLOP/s share
+H100_SXM_BF16_FLOPS = 989e12
+# One train step against another (float32 against float64, two
+# microbatches against one), leaf by leaf.  Random weights drawn as the JAX
+# package draws them saturate attention, which makes single gradient
+# elements chaotic (worse with depth; scripts/lm_train_chaos.py), so the
+# gradients are held in norm: the first moment (0.1 * the clipped gradient)
+# within STEP_TOL[...] relative L2 error.  AdamW's first step moves a weight
+# by lr * sign(g): an element whose gradient lies within its error of zero
+# may step the other way, 2 * lr apart.  So every parameter must lie within
+# 2 * lr, the update's sign may differ on at most tol / 10 of a leaf, and
+# the update (p - p0) within 10 * tol relative L2 error (2 sqrt(tol / 10)
+# from the sign changes alone).
+STEP_TOL = {"float64": 1e-2, "microbatches": 1e-4}
+# float32 against float64: loss and grad norm (relative)
+F64_LOSS_RTOL, F64_GNORM_RTOL = 1e-4, 1e-3
+# one microbatch against two: loss and grad norm (relative)
+MICRO_LOSS_RTOL, MICRO_GNORM_RTOL = 1e-5, 1e-4
+
+
+def step_stats(got, want, base) -> list:
+    """Per leaf, for two train states taken one step from the parameters
+    ``base``: the first moment's relative L2 error, the update's, the share
+    of update signs that differ, and the largest parameter difference."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    rows = []
+    for a, b, ma, mb, p0 in zip(tree_leaves(got["params"]), tree_leaves(want["params"]),
+                                tree_leaves(got["opt"]["m"]), tree_leaves(want["opt"]["m"]),
+                                tree_leaves(base)):
+        a, b, p0 = a.double(), b.double(), p0.double()
+        da, db = a - p0, b - p0
+        rows.append({
+            "shape": tuple(b.shape),
+            "m_rel": ((ma.double() - mb.double()).norm() / mb.double().norm()).item(),
+            "update_rel": ((da - db).norm() / db.norm()).item(),
+            "flips": ((torch.sign(da) != torch.sign(db)) & (db != 0)).double().mean().item(),
+            "max_err": (a - b).abs().max().item(),
+        })
+    return rows
+
+
+def step_agrees(got, want, base, lr: float, which: str) -> dict:
+    """Check the rule above; returns the worst figure of each kind."""
+    tol = STEP_TOL[which]
+    rows = step_stats(got, want, base)
+    for r in rows:
+        check(r["m_rel"] <= tol and r["update_rel"] <= 10 * tol and r["flips"] <= tol / 10
+              and r["max_err"] <= 2 * lr, f"[lm-train] {which}: a leaf {r['shape']} disagrees: "
+              f"first moment rel L2 {r['m_rel']:.3e}, update rel L2 {r['update_rel']:.3e}, sign "
+              f"changes {r['flips']:.3e}, max |err| {r['max_err']:.3e} (lr {lr:.3e}, tol {tol})")
+    return {key: max(r[key] for r in rows) for key in ("m_rel", "update_rel", "flips", "max_err")}
+
+
+def flat_paths(tree, prefix: str = "") -> dict:
+    """{"a/b/c": leaf} of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flat_paths(sub, f"{prefix}/{key}" if prefix else key).items()}
+    return {prefix: tree}
+
+
+def lm_train_phase(dev, smi_line) -> None:
+    """OLMo-1B trained on the card (see the module docstring, phase
+    ``lm-train``)."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
+    from repro_torch.models import build_model, tree_map
+    from repro_torch.models.params import dtype_of
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    steps = LM_TRAIN_STEPS
+    opt = adamw.AdamWConfig(lr_peak=3e-4, warmup_steps=max(steps // 10, 1), decay_steps=steps)
+    data = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH, seed=0)
+    train_cfg = TrainerConfig(steps=steps, log_every=1, checkpoint_every=steps,
+                              n_microbatch=LM_TRAIN_MICRO, remat=True)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+
+    def run_trainer(model, opt_cfg, tc, state=None):
+        """(trainer, final state, per-step CUDA-event ms, wall s, peak B)."""
+        trainer = Trainer(model, opt_cfg, data, tc, device=dev)
+        events = []
+        step_fn = trainer.step_fn
+
+        def evented(st, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(st, batch)
+            end.record()
+            events.append((start, end))
+            return out
+
+        trainer.step_fn = evented
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = trainer.run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer.step_fn = step_fn
+        return (trainer, state, [s.elapsed_time(e) for s, e in events], wall,
+                torch.cuda.max_memory_allocated())
+
+    # --- 1. full width and depth, 8 steps, two microbatches, remat --------
+    model = build_model(cfg)
+    adamw.update_per_layer.leaves = 0
+    trainer, state, ms, wall, peak32 = run_trainer(model, opt, train_cfg)
+    hist = trainer.history
+    leaves = adamw.tree_leaves(state["params"])
+    n_params = sum(t.numel() for t in leaves)
+    # the embedding table is padded to padded_vocab rows (50304 -> 50432)
+    want = cfg.param_count() + (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+    check(n_params == want and all(t.dtype == torch.bfloat16 for t in leaves),
+          f"[lm-train] {n_params} parameters, expected {want} in bf16")
+    check(len(hist) == steps and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                     for r in hist), f"[lm-train] bad history {hist}")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"[lm-train] the loss did not fall: {[r['loss'] for r in hist]}")
+    # the leaves that take the per-layer update: w1, wg and w2, each a
+    # [16, 2048, 8192] stack of 268 M elements
+    giants = sorted(k for k, v in flat_paths(state["params"]).items()
+                    if v.ndim >= 2 and v.numel() > adamw._SCAN_LIMIT)
+    per_layer = adamw.update_per_layer.leaves
+    check(giants == ["dec/stack/l0/ffn/w1", "dec/stack/l0/ffn/w2", "dec/stack/l0/ffn/wg"]
+          and per_layer == len(giants) * steps,
+          f"[lm-train] per-layer AdamW updates {per_layer} over {giants}")
+    step_ms = statistics.median(ms[1:])
+    # model FLOPs: 6 N per token, plus the attention products the code
+    # computes (QK^T and PV over the full S x S scores, forward 4 B S^2 d a
+    # layer, backward twice that); remat's recomputation is not counted
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * LM_TRAIN_BATCH * LM_TRAIN_SEQ ** 2 \
+        * cfg.d_model
+    tflops = flops / (step_ms / 1e3) / 1e12
+    batch = trainer._batch(steps)
+    kernels = device_kernel_ms(lambda: trainer.step_fn(state, batch))
+    busy_ms = sum(kernels.values())
+    busy = "not measured (no device time in the profile)" if not kernels else (
+        f"{busy_ms:.3f} ms of device time in all kernels, {busy_ms / step_ms:.1%} of the median "
+        f"step; the top kernels: " + "; ".join(
+            f"{name[:60]} {ms:.1f} ms" for name, ms in sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:8]))
+    log(f"[lm-train] {LM_ARCH} at full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, "
+        f"{n_params} parameters): {steps} steps of a global batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} in {LM_TRAIN_MICRO} microbatches, remat (two-level), AdamW f32 moments "
+        f"(lr {opt.lr_peak}, warmup {opt.warmup_steps}, decay {opt.decay_steps}) on {smi_line}")
+    log(f"[lm-train] losses {[round(r['loss'], 4) for r in hist]}; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in hist]}")
+    log(f"[lm-train] step ms {[round(x, 1) for x in ms]}; median of steps 2-{steps} "
+        f"{step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tokens/s, {tflops:.1f} TFLOP/s of model "
+        f"FLOPs ({flops:.4e} a step; {tflops * 1e12 / H100_SXM_BF16_FLOPS:.1%} of the H100 "
+        f"SXM's 989 TFLOP/s bf16); {wall:.1f} s for the run; peak memory {peak32} B "
+        f"({peak32 / 2**30:.2f} GiB); per-layer AdamW updates {per_layer} (the FFN stacks, "
+        f"3 a step); one step under torch.profiler: {busy}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+    # --- 2. int8 moments, 2 steps at full depth ----------------------------
+    opt8 = dataclasses.replace(opt, state_dtype="int8")
+    trainer, state, ms8, _, peak8 = run_trainer(model, opt8, dataclasses.replace(
+        train_cfg, steps=2))
+    check(all(np.isfinite(r["loss"]) for r in trainer.history), "[lm-train] int8: bad loss")
+    log(f"[lm-train] int8 moments: 2 steps, losses {[round(r['loss'], 4) for r in trainer.history]}"
+        f", step ms {[round(x, 1) for x in ms8]}, peak memory {peak8} B ({peak8 / 2**30:.2f} GiB) "
+        f"beside {peak32} B ({peak32 / 2**30:.2f} GiB) with f32 moments")
+    del trainer, state, model
+    torch.cuda.empty_cache()
+
+    # --- 3. at 2 layers: float64, remat, microbatches, restart ------------
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_TRAIN_LAYERS_CHECKED)
+    base = build_model(cfg2).init(torch.Generator().manual_seed(1), device=dev)
+    batch = make_global_batch(SyntheticLM(data), 0, dev)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def one_step(dtype: str, n_micro: int, remat: bool):
+        c = dataclasses.replace(cfg2, dtype=dtype)
+        params = tree_map(lambda t: t.to(dtype_of(c)), base)
+        st = {"params": params, "opt": adamw.init_opt_state(params, opt)}
+        new, metrics = make_train_step(build_model(c), opt, n_microbatch=n_micro,
+                                       remat=remat)(st, batch)
+        return new, {k: float(v) for k, v in metrics.items()}
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        s64, m64 = one_step("float64", LM_TRAIN_MICRO, True)
+        s32, m32 = one_step("float32", LM_TRAIN_MICRO, True)
+        lr = m64["lr"]
+        loss_err = abs(m32["loss"] - m64["loss"]) / abs(m64["loss"])
+        gnorm_err = abs(m32["grad_norm"] - m64["grad_norm"]) / m64["grad_norm"]
+        check(loss_err <= F64_LOSS_RTOL and gnorm_err <= F64_GNORM_RTOL,
+              f"[lm-train] float32 step against float64: loss {m32['loss']} vs {m64['loss']}, "
+              f"grad norm {m32['grad_norm']} vs {m64['grad_norm']}")
+        f64 = step_agrees(s32, s64, base, lr, "float64")
+        log(f"[lm-train] {LM_TRAIN_LAYERS_CHECKED} layers at full width, one step (TF32 off): "
+            f"float32 against float64 loss {m32['loss']:.8f} / {m64['loss']:.8f} (rel err "
+            f"{loss_err:.2e}), grad norm {m32['grad_norm']:.6e} / {m64['grad_norm']:.6e} (rel err "
+            f"{gnorm_err:.2e}); worst leaf: first moment rel L2 {f64['m_rel']:.2e}, update rel L2 "
+            f"{f64['update_rel']:.2e}, update sign changes {f64['flips']:.2e}, max |err| "
+            f"{f64['max_err']:.2e} (lr {lr:.2e}; AdamW's update is f32 in both)")
+        del s64
+        s_plain, m_plain = one_step("float32", LM_TRAIN_MICRO, False)
+        remat_same = all(torch.equal(a, b) for a, b in zip(
+            adamw.tree_leaves(s32), adamw.tree_leaves(s_plain)))
+        remat_diff = max((a.double() - b.double()).abs().max().item() for a, b in zip(
+            adamw.tree_leaves(s32["params"]), adamw.tree_leaves(s_plain["params"])))
+        del s_plain
+        s_one, m_one = one_step("float32", 1, True)
+        micro_loss = abs(m_one["loss"] - m32["loss"]) / abs(m_one["loss"])
+        micro_gnorm = abs(m_one["grad_norm"] - m32["grad_norm"]) / m_one["grad_norm"]
+        check(micro_loss <= MICRO_LOSS_RTOL and micro_gnorm <= MICRO_GNORM_RTOL,
+              f"[lm-train] 2 microbatches against 1: loss {m32['loss']} vs {m_one['loss']}, "
+              f"grad norm {m32['grad_norm']} vs {m_one['grad_norm']}")
+        micro = step_agrees(s32, s_one, base, lr, "microbatches")
+        del s32, s_one
+
+        # restart: 6 steps straight against 3, a checkpoint, a fresh Trainer
+        model2 = build_model(cfg2)
+        tc = dataclasses.replace(train_cfg, steps=2 * LM_RESTART_AT, log_every=100)
+        _, straight, _, _, _ = run_trainer(model2, opt, tc)
+        ckdir = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+        tc_mid = dataclasses.replace(tc, steps=LM_RESTART_AT, checkpoint_every=100,
+                                     checkpoint_dir=ckdir)
+        run_trainer(model2, opt, tc_mid)
+        _, resumed, _, _, _ = run_trainer(model2, opt, dataclasses.replace(
+            tc_mid, steps=2 * LM_RESTART_AT))
+        shutil.rmtree(ckdir)
+        restart_same = all(torch.equal(a, b) for a, b in zip(
+            adamw.tree_leaves(straight), adamw.tree_leaves(resumed)))
+        restart_diff = max((a.double() - b.double()).abs().max().item() for a, b in zip(
+            adamw.tree_leaves(straight["params"]), adamw.tree_leaves(resumed["params"])))
+        del straight, resumed
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    # ops that have no deterministic CUDA implementation warn under warn_only
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic implementation" in str(w.message)})
+    if nondet:
+        log(f"[lm-train] no deterministic CUDA implementation: {nondet}; remat max |diff| "
+            f"{remat_diff:.3e}, restart max |diff| {restart_diff:.3e} (not bit for bit)")
+        check(remat_diff <= 2 * lr and restart_diff <= 2 * tc.steps * opt.lr_peak,
+              "[lm-train] remat or restart differ by more than the update")
+    else:
+        check(remat_same, f"[lm-train] remat changed the step (max |diff| {remat_diff:.3e})")
+        check(restart_same, f"[lm-train] a resumed run differs from a straight one (max |diff| "
+              f"{restart_diff:.3e})")
+    log(f"[lm-train] under torch.use_deterministic_algorithms: remat=True against False "
+        f"{'bit for bit' if remat_same else f'max |diff| {remat_diff:.3e}'}; {LM_TRAIN_MICRO} "
+        f"microbatches against 1: loss rel err {micro_loss:.2e}, grad norm rel err "
+        f"{micro_gnorm:.2e}, worst leaf: first moment rel L2 {micro['m_rel']:.2e}, update rel L2 "
+        f"{micro['update_rel']:.2e}, sign changes {micro['flips']:.2e}; "
+        f"{2 * LM_RESTART_AT} steps straight against {LM_RESTART_AT}, a checkpoint and a resume "
+        f"in a fresh Trainer: {'bit for bit' if restart_same else f'max |diff| {restart_diff:.3e}'}"
+        f" (parameters and moments)")
+    del base, batch
+    torch.cuda.empty_cache()
+    log(f"[lm-train] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1835,6 +2144,9 @@ def main() -> None:
 
     # --- lm: OLMo-1B served on the card, its FFNs pruned through kernels 1-2 --
     lm_launches = lm_phase(dev, spec, smi_line, reset_counts, read_counts)
+
+    # --- lm-train: OLMo-1B trained on the card (no HBP kernel on this path) --
+    lm_train_phase(dev, smi_line)
 
     # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
     def csr_tensor(csr):

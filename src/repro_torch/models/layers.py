@@ -161,7 +161,7 @@ def embed_apply(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 def logits_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    logits = (x @ w).float()
+    logits = wide(x @ w)
     if cfg.padded_vocab != cfg.vocab:
         # mask pad columns: no effect on CE's logsumexp, never sampled
         logits[..., cfg.vocab:] = -1e30

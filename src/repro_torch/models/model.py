@@ -4,9 +4,11 @@
 parameters are a plain nested dict of tensors beside it (from
 :meth:`Model.init` or :func:`~.params.params_from_arrays`), so the JAX
 package's trees carry over key for key.  ``Model.forward`` covers the
-modes the serving engine uses:
+modes the serving engine and the train step use:
 
-* full sequence, no cache (evaluation, the reference decode is held to);
+* full sequence, no cache (training and evaluation, the reference decode
+  is held to); ``remat=True`` recomputes the stacked layers' activations
+  in the backward pass (:func:`~.transformer.stack_apply`);
 * prefill — full sequence, writes the decode cache;
 * decode — one token against the cache (``tokens [B, 1]``);
 * encoder-decoder — frames → encoder, tokens → decoder with cross-attention.
@@ -55,11 +57,12 @@ class Model:
         }
 
     # ---------------------------------------------------------------- forward
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """Encoder stack over stub frame embeddings [B, S_enc, D]."""
         cfg = self.cfg
         x = frames.to(dtype_of(cfg))
-        x, _ = stack_apply(params["enc"], x, cfg, n_layers=cfg.encoder_layers, causal=False)
+        x, _ = stack_apply(params["enc"], x, cfg, n_layers=cfg.encoder_layers, causal=False,
+                           remat=remat)
         return apply_norm(params["enc_norm"], x, cfg)
 
     def forward(
@@ -69,9 +72,10 @@ class Model:
         *,
         cache: Optional[Dict] = None,
         pos0: int = 0,
+        remat: bool = False,
     ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-        """Returns (logits f32 [B,S,V], cache, aux_loss); the cache given is
-        written in place and returned."""
+        """Returns (logits [B,S,V] in float32, float64 for a float64 model,
+        cache, aux_loss); the cache given is written in place and returned."""
         cfg = self.cfg
         x = embed_apply(params["embed"], batch["tokens"], cfg)
 
@@ -85,12 +89,13 @@ class Model:
             if "enc_out" in batch:
                 enc_out = batch["enc_out"]
             elif "frames" in batch:
-                enc_out = self.encode(params, batch["frames"])
+                enc_out = self.encode(params, batch["frames"], remat=remat)
             # decode steps read cross-K/V from the cache; enc_out may be None
 
         x, aux = stack_apply(
             params["dec"], x, cfg, n_layers=cfg.n_layers, pos0=pos0,
             cache=None if cache is None else cache["dec"], enc_out=enc_out, causal=True,
+            remat=remat,
         )
         x = apply_norm(params["final_norm"], x, cfg)
         return logits_apply(params["embed"], x, cfg), cache, aux

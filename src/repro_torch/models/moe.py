@@ -18,9 +18,11 @@ dense FFNs added to the routed output.
 
 Ties in the router go to the lower expert index, as ``jax.lax.top_k``
 puts them: the top k are the first k of a stable descending sort
-(``torch.topk`` promises no order on ties).  The JAX package's gathers
-carry a custom gradient (a gather both ways); that is the training half,
-which waits for the training slice; here they are plain gathers.
+(``torch.topk`` promises no order on ties).  Every index map is
+injective (pad-extended), so each gather goes through :func:`_permute`,
+whose backward is itself a gather through the inverse map, as the JAX
+package's custom VJP is: autograd's own backward of a gather would be a
+scatter-add, which also turns a ``-0.0`` gradient into ``+0.0``.
 """
 from __future__ import annotations
 
@@ -52,12 +54,32 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return defs
 
 
-def _permute(x: torch.Tensor, fwd_idx: torch.Tensor) -> torch.Tensor:
-    """Padded gather: ``out[b, i] = x[b, fwd_idx[b, i]]``; index
-    ``x.shape[1]`` reads a zero pad row."""
+def _take_padded(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[b, i] = x[b, idx[b, i]]``; index ``x.shape[1]`` reads a zero
+    pad row."""
     B, N, D = x.shape
     padded = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)
-    return torch.gather(padded, 1, fwd_idx[..., None].expand(-1, -1, D))
+    return torch.gather(padded, 1, idx[..., None].expand(-1, -1, D))
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fwd_idx, bwd_idx):
+        ctx.save_for_backward(bwd_idx)
+        return _take_padded(x, fwd_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (bwd_idx,) = ctx.saved_tensors
+        return _take_padded(g, bwd_idx), None, None
+
+
+def _permute(x: torch.Tensor, fwd_idx: torch.Tensor, bwd_idx: torch.Tensor) -> torch.Tensor:
+    """Injective padded permutation ``out[b, i] = x[b, fwd_idx[b, i]]``
+    (index ``x.shape[1]`` reads the zero pad row).  ``bwd_idx`` is the
+    inverse map (index ``out.shape[1]`` for a row nothing reads), so the
+    gradient is the gather ``dx[b, j] = g[b, bwd_idx[b, j]]``."""
+    return _Permute.apply(x, fwd_idx, bwd_idx)
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,13 +118,13 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
 
     # ---- dispatch: token -> K slots -> sorted slots -> expert buffers
     x_slots = torch.repeat_interleave(x, K, dim=1)  # [B, T, D]
-    xs = _permute(x_slots, order)  # [B, T, D]
+    xs = _permute(x_slots, order, inv_order)  # [B, T, D]
     arange_c = torch.arange(C, device=dev)
     src = starts[:, :, None] + arange_c[None, None, :]  # [B, E, C]
     valid = arange_c[None, None, :] < counts[:, :, None]
     src = torch.where(valid, src, T).reshape(B, E * C)
     slot_dest = torch.where(keep, e_sorted * C + rank, E * C)  # inverse map
-    expert_in = _permute(xs, src).reshape(B, E, C, D)
+    expert_in = _permute(xs, src, slot_dest).reshape(B, E, C, D)
 
     if cfg.act != "relu2":
         h = _activate(
@@ -113,11 +135,11 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     eout = torch.einsum("becf,efd->becd", h, p["w2"]).reshape(B, E * C, D)
 
     # ---- combine: sorted slot <- expert buffer slot (dropped -> 0)
-    contrib = _permute(eout, slot_dest)  # [B, T, D]
+    contrib = _permute(eout, slot_dest, src)  # [B, T, D]
     gate_sorted = torch.gather(gates.reshape(B, T), -1, order)
     contrib = contrib * gate_sorted[..., None].to(contrib.dtype)
     # slot <- sorted slot, then fold the K slots per token
-    contrib = _permute(contrib, inv_order)
+    contrib = _permute(contrib, inv_order, order)
     out = contrib.reshape(B, S, K, D).sum(dim=2)
 
     for s in range(cfg.moe_shared):

@@ -5,9 +5,19 @@ Layers are grouped into the smallest repeating pattern
 mamba/attention interleave) and the stack's parameters are stacked along
 a leading group dimension, ``[n_groups, ...]``, as in the JAX package, so
 that its weights carry over 1:1.  Where the JAX package scans over the
-groups, a loop here indexes group ``g`` of every stacked leaf.
-``moe_first_dense`` layers (DeepSeek-V2) run as a prologue before the
-stack.
+groups, a loop here walks the groups of every stacked leaf, unbound once
+per call (``torch.unbind``: one ``stack`` of the gradients in the
+backward, where indexing group by group would add a zero-filled copy of
+the whole stack per group).  ``moe_first_dense`` layers (DeepSeek-V2) run
+as a prologue before the stack.
+
+``remat=True`` recomputes activations in the backward pass as the JAX
+package's ``jax.checkpoint`` does, and only where it does: on the stacked
+(``scan_layers``) groups, never on the prologue.  Each group runs under
+``torch.utils.checkpoint``; with no cache and ``n_inner =
+_sqrt_factor(n_groups) > 1``, runs of ``n_inner`` groups run under an
+outer checkpoint as well (the two-level split: the forward keeps only
+``n_groups / n_inner`` boundary activations).
 
 Decode caches mirror the stack structure: per-layer cache dicts, stacked
 along the same leading group dimension.  Group ``g``'s cache is a view
@@ -19,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -35,6 +46,17 @@ __all__ = [
     "stack_apply",
     "init_stack_cache",
 ]
+
+
+def _sqrt_factor(n: int) -> int:
+    """Largest divisor of n not exceeding sqrt(n) (two-level remat split)."""
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            best = d
+        d += 1
+    return best
 
 
 def block_defs(cfg: ModelConfig, kind: Tuple[str, str], *, cross: bool = False) -> Dict:
@@ -143,6 +165,7 @@ def stack_apply(
     cache: Optional[Dict] = None,
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the stack; returns (x, aux_loss) and writes ``cache`` in place."""
     prologue_kinds, period_kinds, n_groups = _pattern(cfg, n_layers)
@@ -155,19 +178,55 @@ def stack_apply(
         x, aux = run(params[f"pro{i}"], x, None if cache is None else cache[f"pro{i}"], kind)
         aux_total = aux_total + aux
 
-    for g in range(n_groups):
-        if cfg.scan_layers:
-            gp = tree_map(lambda a: a[g], params["stack"])
-            gcache = None if cache is None else tree_map(lambda a: a[g], cache["stack"])
-        else:
-            gp = params[f"g{g}"]
-            gcache = None if cache is None else cache[f"g{g}"]
+    def group_apply(gp, x, gcache):
         gaux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(period_kinds):
             x, aux = run(gp[f"l{j}"], x, None if gcache is None else gcache[f"l{j}"], kind)
             gaux = gaux + aux
-        aux_total = aux_total + gaux
-    return x, aux_total
+        return x, gaux
+
+    if not cfg.scan_layers:
+        for g in range(n_groups):
+            x, gaux = group_apply(params[f"g{g}"], x, None if cache is None else cache[f"g{g}"])
+            aux_total = aux_total + gaux
+        return x, aux_total
+
+    groups = _unbind(params["stack"], n_groups)
+    # a cache is written in place, through single views (an unbind's
+    # outputs may not be written in place under autograd)
+    gcaches = [None if cache is None else tree_map(lambda a: a[g], cache["stack"])
+               for g in range(n_groups)]
+    body = group_apply
+    if remat:
+        def body(gp, x, gcache):
+            return checkpoint(group_apply, gp, x, gcache, use_reentrant=False,
+                              preserve_rng_state=False)
+
+    n_inner = _sqrt_factor(n_groups) if (remat and cache is None) else 1
+    gauxs = []
+    if n_inner > 1:
+        def outer(run_groups, x):
+            inner = []
+            for gp in run_groups:
+                x, gaux = body(gp, x, None)
+                inner.append(gaux)
+            return x, torch.stack(inner)
+
+        for o in range(0, n_groups, n_inner):
+            x, inner = checkpoint(outer, groups[o : o + n_inner], x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            gauxs.append(inner)
+    else:
+        for gp, gcache in zip(groups, gcaches):
+            x, gaux = body(gp, x, gcache)
+            gauxs.append(gaux[None])
+    return x, aux_total + torch.cat(gauxs).sum()
+
+
+def _unbind(stacked, n: int):
+    """The ``n`` groups of a tree of stacked leaves, as views."""
+    parts = tree_map(lambda a: torch.unbind(a, 0), stacked)
+    return [tree_map(lambda t: t[g], parts) for g in range(n)]
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,14 @@ in the JAX package's order (sequences in order, dict keys sorted).
 :func:`load_opt_state` carries an optimizer state across from the JAX
 package (numpy ``m``, ``v`` and ``step``, int8 moments included).
 
+A layer-stacked giant (a leaf with ``ndim >= 2`` and more than
+``_SCAN_LIMIT`` elements, such as an LM's ``[n_layers, d, d_ff]`` FFN
+stack) is updated one slice of axis 0 at a time, as the JAX package's
+``lax.map`` does, so the f32 update chain's transients stay one layer's
+size; the result is bit for bit the whole-leaf update's.
+
 Not ported yet: ``opt_state_specs`` (the moments' shardings over a device
-mesh) and the per-layer ``lax.map`` update of layer-stacked giants; both
-belong to the language-model slice.
+mesh), which comes with the mesh surfaces.
 """
 from __future__ import annotations
 
@@ -37,7 +42,12 @@ __all__ = [
     "load_opt_state",
     "tree_flatten",
     "tree_leaves",
+    "update_per_layer",
 ]
+
+# Leaves above this many elements (and with ndim >= 2) take the per-layer
+# update of update_per_layer.
+_SCAN_LIMIT = 1 << 27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,16 +183,23 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     bc1 = 1.0 - b1 ** step.to(torch.float32)
     bc2 = 1.0 - b2 ** step.to(torch.float32)
 
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+    def update_leaf(p, g, m, v):
         g32 = g.to(torch.float32) * clip
         m32 = _unwrap(m) * b1 + (1 - b1) * g32
         v32 = _unwrap(v) * b2 + (1 - b2) * g32 * g32
         upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         p32 = p.to(torch.float32) * (1.0 - lr * cfg.weight_decay) - lr * upd
-        new_p.append(p32.to(p.dtype))
-        new_m.append(_wrap(m32, cfg.state_dtype))
-        new_v.append(_wrap(v32, cfg.state_dtype))
+        return p32.to(p.dtype), _wrap(m32, cfg.state_dtype), _wrap(v32, cfg.state_dtype)
+
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        if p.ndim >= 2 and p.numel() > _SCAN_LIMIT:
+            np_, nm, nv = update_per_layer(update_leaf, p, g, m, v)
+        else:
+            np_, nm, nv = update_leaf(p, g, m, v)
+        new_p.append(np_)
+        new_m.append(nm)
+        new_v.append(nv)
 
     metrics = {"lr": lr, "grad_norm": gnorm, "step": step}
     return (
@@ -190,6 +207,40 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
         {"m": rebuild(new_m), "v": rebuild(new_v), "step": step},
         metrics,
     )
+
+
+def _row(m, i: int):
+    return QTensor(m.q[i], m.scale[i]) if isinstance(m, QTensor) else m[i]
+
+
+def _empty_like(m):
+    if isinstance(m, QTensor):
+        return QTensor(torch.empty_like(m.q), torch.empty_like(m.scale))
+    return torch.empty(m.shape, dtype=torch.float32, device=m.device)
+
+
+def _put(out, i: int, value) -> None:
+    if isinstance(out, QTensor):
+        out.q[i] = value.q
+        out.scale[i] = value.scale
+    else:
+        out[i] = value
+
+
+def update_per_layer(update_leaf, p, g, m, v):
+    """``update_leaf`` (one leaf's AdamW step) over the slices of axis 0,
+    written into new tensors; adds one to ``update_per_layer.leaves``."""
+    out_p, out_m, out_v = torch.empty_like(p), _empty_like(m), _empty_like(v)
+    for i in range(p.shape[0]):
+        pi, mi, vi = update_leaf(p[i], g[i], _row(m, i), _row(v, i))
+        out_p[i] = pi
+        _put(out_m, i, mi)
+        _put(out_v, i, vi)
+    update_per_layer.leaves += 1
+    return out_p, out_m, out_v
+
+
+update_per_layer.leaves = 0
 
 
 def load_opt_state(opt_state, device=None) -> Dict[str, Any]:

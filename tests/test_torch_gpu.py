@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo, csr_from_dense
 from repro_torch.core.matrices import banded_fem, circuit, rmat
 from repro_torch.kernels import ops, ref
@@ -853,3 +854,87 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
     for i in range(2):
         n = 8 if clear[i].all() else int(np.argmin(clear[i]))
         assert np.array_equal(outs["cuda"][i, :n], fed[i, :n])
+
+
+# --- LM training on the card --------------------------------------------------
+
+
+def _train_batch(cfg, seed=1, b=4, s=16):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), dtype=torch.int64)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)), dtype=torch.float32)
+    if cfg.is_encdec:
+        batch["frames"] = torch.as_tensor(rng.standard_normal((b, s, cfg.d_model)),
+                                          dtype=torch.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One step (two microbatches, remat) of every architecture's smoke
+    config on the card and on the CPU from the same weights: loss within
+    ``rtol=1e-5``, grad norm within ``rtol=1e-4``; parameters within
+    ``rtol=1e-5, atol=1e-5 * max|leaf| + 1e-2 * lr`` where the CPU's first
+    moment is at least 1e-4 of its leaf's largest, and everywhere within
+    ``2 * lr`` (the step of an unresolved gradient's sign)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=50)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = _train_batch(cfg)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        state = {"params": p, "opt": init_opt_state(p, ocfg)}
+        step = make_train_step(model, ocfg, n_microbatch=2, remat=True)
+        out.append(step(state, {k: v.to(dev) for k, v in batch.items()}))
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    (s_cpu, m_cpu), (s_dev, m_dev) = out
+    np.testing.assert_allclose(float(m_dev["loss"]), float(m_cpu["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m_dev["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-4)
+    lr = float(m_cpu["lr"])
+    for a, b, m in zip(tree_leaves(s_dev["params"]), tree_leaves(s_cpu["params"]),
+                       tree_leaves(s_cpu["opt"]["m"])):
+        err = (a.cpu() - b).abs()
+        tight = err <= 1e-5 * b.abs() + 1e-5 * b.abs().max() + 1e-2 * lr
+        resolved = m.abs() >= 1e-4 * m.abs().max()
+        assert bool(torch.all(tight[resolved])) and err.max().item() <= 2 * lr
+
+
+def test_decode_on_the_card_is_unchanged_by_the_stack_unbind(cuda, monkeypatch):
+    """The stack is unbound once per call; indexing it group by group, as
+    before, gives the same tokens and the same logits bit for bit."""
+    import dataclasses
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, tree_map
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), n_layers=4, vocab=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    prompts = [np.random.default_rng(i).integers(0, 128, 6).astype(np.int32) for i in range(2)]
+
+    def serve():
+        reqs = [Request(prompt=p.copy(), max_new=8) for p in prompts]
+        Engine(model, params, EngineConfig(batch=2, max_len=64), device=cuda).generate(reqs)
+        full, _, _ = model.forward(params, {"tokens": torch.as_tensor(
+            np.stack([np.concatenate([p, r.out]) for p, r in zip(prompts, reqs)]),
+            dtype=torch.int64, device=cuda)})
+        return np.stack([r.out for r in reqs]), full
+
+    tokens, logits = serve()
+    monkeypatch.setattr(transformer, "_unbind", lambda stacked, n: [
+        tree_map(lambda a: a[g], stacked) for g in range(n)])
+    tokens_indexed, logits_indexed = serve()
+    assert np.array_equal(tokens, tokens_indexed) and torch.equal(logits, logits_indexed)

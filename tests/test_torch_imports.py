@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and
-its entry points default to the card without falling back to the CPU."""
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
+``ml_dtypes`` (the card's machine does not have it), and its entry points
+default to the card without falling back to the CPU."""
 import re
 import subprocess
 import sys
@@ -32,7 +33,9 @@ def test_the_scan_covers_the_lm_modules():
     for want in ("configs/base.py", "configs/olmo_1b.py", "models/params.py",
                  "models/attention.py", "models/transformer.py", "models/model.py",
                  "serve/engine.py", "serve/steps.py", "launch/serve.py",
-                 "core/sparse_linear.py"):
+                 "core/sparse_linear.py", "train/steps.py", "train/trainer.py",
+                 "checkpoint/checkpointer.py", "data/pipeline.py", "optim/compression.py",
+                 "launch/train.py"):
         assert want in names, want
 
 
@@ -42,6 +45,7 @@ def test_no_jax_or_reference_imports(path):
     bad = _FORBIDDEN.findall(src)
     assert not bad, f"{path}: {bad}"
     assert "import jax" not in src
+    assert not re.search(r"^\s*(?:import|from)\s+ml_dtypes\b", src, re.MULTILINE), path
 
 
 def test_forbidden_pattern_catches_what_it_should():
@@ -64,7 +68,9 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
         "import repro_torch.analysis.diff, repro_torch.obs.planview\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve, repro_torch.core.sparse_linear\n"
-        "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+        "import repro_torch.train.trainer, repro_torch.checkpoint, repro_torch.data\n"
+        "import repro_torch.optim.compression, repro_torch.launch.train\n"
+        "bad = [m for m in ('jax', 'triton', 'repro', 'ml_dtypes') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -185,3 +191,34 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     assert Engine(model, params, EngineConfig(), device="cpu").device == torch.device("cpu")
     assert SparseLinear.from_dense(w, device="cpu").dt.device == torch.device("cpu")
     assert params_from_arrays({"w": w}, device="cpu")["w"].device == torch.device("cpu")
+
+
+def test_training_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """The training slice's entry points (the train state, the data on the
+    card, the trainer and the launcher) run on the card unless given
+    ``device="cpu"``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), n_layers=2, vocab=128)
+    model = build_model(cfg)
+    dcfg = DataConfig(vocab=128, seq_len=8, global_batch=2)
+    for call in (
+        lambda: init_train_state(model, torch.Generator().manual_seed(0), AdamWConfig()),
+        lambda: make_global_batch(SyntheticLM(dcfg), 0),
+        lambda: Trainer(model, AdamWConfig(), dcfg, TrainerConfig()),
+        lambda: launch_train.main(["--arch", "olmo-1b", "--smoke", "--steps", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    state = init_train_state(model, torch.Generator().manual_seed(0), AdamWConfig(), device="cpu")
+    assert state["opt"]["step"].device == torch.device("cpu")
+    assert Trainer(model, AdamWConfig(), dcfg, TrainerConfig(), device="cpu").device.type == "cpu"

@@ -173,22 +173,24 @@ def test_unstacked_layers_match_the_reference():
 
 def test_a_float64_model_computes_wholly_in_float64():
     """A float64 copy (the card's reference for the full-width decode
-    check) keeps float64 through norms, scores and cache: its cached decode
-    equals its full forward to float64 rounding."""
+    check and the float64 train step) keeps float64 through norms, scores,
+    cache and logits: its cached decode equals its full forward to float64
+    rounding."""
     cfg = dataclasses.replace(get_config("olmo-1b").smoke(), dtype="float64")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     assert params["embed"]["tok"].dtype == torch.float64
     tokens = _batch(cfg)[1]["tokens"]
     full, _, _ = model.forward(params, {"tokens": tokens})
+    assert full.dtype == torch.float64
     cache = model.init_cache(B, S, device="cpu")
     assert cache["dec"]["stack"]["l0"]["attn"]["k"].dtype == torch.float64
     _, cache, _ = model.forward(params, {"tokens": tokens[:, :P]}, cache=cache)
     for t in range(P, S):
         step, cache, _ = model.forward(params, {"tokens": tokens[:, t : t + 1]}, cache=cache,
                                        pos0=t)
-        # float32 logits of float64 math: within a float32 rounding or two
-        np.testing.assert_allclose(step[:, 0].numpy(), full[:, t].numpy(), rtol=2e-7, atol=1e-7)
+        # float64 logits: within float64 rounding
+        np.testing.assert_allclose(step[:, 0].numpy(), full[:, t].numpy(), rtol=1e-11, atol=1e-12)
 
 
 def _moe_case(seed, tie: bool, S_len: int):
