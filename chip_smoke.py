@@ -183,6 +183,19 @@ and after phase 6 (train, solvers, lm, lm-train):
   deterministic CUDA implementation would be named, and the difference
   printed instead).
 
+* dryrun   — ``repro_torch.launch.dryrun`` on the 1x1 host mesh (a
+  ``DeviceMesh`` over a world-1 NCCL group), fake CUDA tensors, for the two
+  OLMo-1B steps measured above: the train step at 8 x 1024 with
+  ``[lm-train]``'s microbatches, remat and f32 moments, and the decode at
+  batch 4 with ``[lm]``'s cache of 256.  Each predicted
+  ``peak_estimate_bytes`` is printed beside that phase's
+  ``torch.cuda.max_memory_allocated()`` less the bytes the earlier phases
+  still held when it began, with their ratio, and must lie within
+  ``DRYRUN_TOL`` (15 %) of it either way.  Then ``decode_32k`` of every
+  arch on the ``single`` and ``multipod`` meshes (records in a temporary
+  directory), none an error, and the ``fleet_stats`` line; the full sweep is ``python -m repro_torch.launch.dryrun --all
+  --mesh both``.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -1141,10 +1154,11 @@ LM_SPARSITY = 0.9
 LM_WIDTHS = (1, 4, 48)  # one token, the decode batch, the prefill's 4 x 12
 
 
-def lm_phase(dev, spec, smi_line, reset_counts, read_counts) -> dict:
+def lm_phase(dev, spec, smi_line, reset_counts, read_counts):
     """OLMo-1B at full width on the card (see the module docstring, phase
     ``lm``).  Returns the launches of kernels 1-2 during the pruned FFN
-    projections' applies."""
+    projections' applies, and the served batches' peak memory with the
+    bytes the earlier phases still held when the phase began."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1157,6 +1171,7 @@ def lm_phase(dev, spec, smi_line, reset_counts, read_counts) -> dict:
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
     model = build_model(cfg)
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), device=dev)
     torch.cuda.synchronize()
@@ -1360,7 +1375,7 @@ def lm_phase(dev, spec, smi_line, reset_counts, read_counts) -> dict:
     log(f"[lm] phase took {time.perf_counter() - t_phase:.1f} s")
     del layers, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"peak": peak, "base": base}
 
 
 # [lm-train]: OLMo-1B trained through Trainer with the launcher's AdamW
@@ -1431,9 +1446,10 @@ def flat_paths(tree, prefix: str = "") -> dict:
     return {prefix: tree}
 
 
-def lm_train_phase(dev, smi_line) -> None:
+def lm_train_phase(dev, smi_line) -> dict:
     """OLMo-1B trained on the card (see the module docstring, phase
-    ``lm-train``)."""
+    ``lm-train``).  Returns the f32 run's peak memory with the bytes the
+    earlier phases still held when it began."""
     import dataclasses
     import shutil
     import statistics
@@ -1483,6 +1499,7 @@ def lm_train_phase(dev, smi_line) -> None:
     # --- 1. full width and depth, 8 steps, two microbatches, remat --------
     model = build_model(cfg)
     adamw.update_per_layer.leaves = 0
+    base32 = torch.cuda.memory_allocated()
     trainer, state, ms, wall, peak32 = run_trainer(model, opt, train_cfg)
     hist = trainer.history
     leaves = adamw.tree_leaves(state["params"])
@@ -1635,6 +1652,79 @@ def lm_train_phase(dev, smi_line) -> None:
     del base, batch
     torch.cuda.empty_cache()
     log(f"[lm-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"peak": peak32, "base": base32}
+
+
+# [dryrun]: the predicted peaks may lie this far from the measured ones,
+# either way; the sweep runs one shape per arch (decode_32k: a full sweep
+# takes far longer than the phase's 90 s)
+DRYRUN_TOL = 0.15
+DRYRUN_SWEEP_SHAPE = "decode_32k"
+
+
+def dryrun_phase(spec, smi_line, lm_memory: dict, train_memory: dict) -> None:
+    """The dry run on the 1x1 host mesh (see the module docstring, phase
+    ``dryrun``)."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.report import fleet_stats
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import mesh_shape
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    log(f"[dryrun] host mesh {mesh_shape(mesh)} on {mesh.device_type} (a world-1 NCCL group)")
+    cfg = get_config(LM_ARCH)
+    steps = LM_TRAIN_STEPS
+    # [lm-train]'s step: its AdamW (f32 moments), microbatches and remat
+    opt = AdamWConfig(lr_peak=3e-4, warmup_steps=max(steps // 10, 1), decay_steps=steps)
+    cells = (
+        ("train", ShapeConfig("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
+         dict(n_micro=LM_TRAIN_MICRO, ocfg=opt), train_memory, "[lm-train] f32 run"),
+        ("decode", ShapeConfig("lm_decode", LM_MAX_LEN, LM_BATCH, "decode"), {}, lm_memory,
+         "[lm] served batches"),
+    )
+    for label, shape, kw, measured, phase in cells:
+        rec = dryrun.dryrun_cell(cfg, shape, mesh, hw=spec, device="cuda", roofline=False, **kw)
+        check(rec["status"] == "ok", f"[dryrun] {label}: {rec}")
+        predicted = rec["memory"]["peak_estimate_bytes"]
+        held = measured["peak"] - measured["base"]
+        ratio = predicted / held
+        log(f"[dryrun] {LM_ARCH} {label} ({shape.global_batch} x {shape.seq_len}"
+            f"{', %d microbatches, remat, AdamW f32' % LM_TRAIN_MICRO if label == 'train' else ''}"
+            f"): predicted peak {predicted} B ({predicted / 2**30:.3f} GiB; arguments "
+            f"{rec['memory']['argument_bytes']}, temp {rec['memory']['temp_bytes']}, output "
+            f"{rec['memory']['output_bytes']}, alias {rec['memory']['alias_bytes']}; trace "
+            f"{rec['compile_s']} s) beside {phase}' torch.cuda.max_memory_allocated() "
+            f"{measured['peak']} B less the {measured['base']} B the earlier phases held = "
+            f"{held} B: ratio {ratio:.4f} on {smi_line}")
+        check(abs(ratio - 1) <= DRYRUN_TOL,
+              f"[dryrun] {label}: predicted {predicted} B lies {ratio - 1:+.1%} from the measured "
+              f"{held} B (tolerance {DRYRUN_TOL:.0%})")
+    dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    recs = {}
+    with tempfile.TemporaryDirectory() as out:
+        for arch in sorted(ARCHS):
+            for mesh_name in ("single", "multipod"):
+                rec = dryrun.run_cell(arch, DRYRUN_SWEEP_SHAPE, mesh_name, Path(out), hw=spec,
+                                      device="cuda", roofline=mesh_name == "single")
+                check(rec["status"] in ("ok", "skipped"),
+                      f"[dryrun] {arch} x {DRYRUN_SWEEP_SHAPE} x {mesh_name}: {rec.get('error')}")
+                recs[arch, DRYRUN_SWEEP_SHAPE, mesh_name] = rec
+    log(f"[dryrun] sweep of {DRYRUN_SWEEP_SHAPE} over {len(ARCHS)} archs on single and multipod "
+        f"in {time.perf_counter() - t0:.1f} s: " + fleet_stats(recs))
+    for (arch, _, mesh_name), rec in sorted(recs.items()):
+        if rec["status"] == "ok":
+            log(f"[dryrun] {arch} {mesh_name}: peak {rec['memory']['peak_estimate_bytes']} B, "
+                f"fits {rec['fits_hbm']}, trace {rec['compile_s']} s"
+                + (f", bound by {rec['roofline']['bottleneck']}" if "roofline" in rec else ""))
+    log(f"[dryrun] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2143,10 +2233,13 @@ def main() -> None:
             check(n > 0, f"{name} was never launched on the solvers path")
 
     # --- lm: OLMo-1B served on the card, its FFNs pruned through kernels 1-2 --
-    lm_launches = lm_phase(dev, spec, smi_line, reset_counts, read_counts)
+    lm_launches, lm_memory = lm_phase(dev, spec, smi_line, reset_counts, read_counts)
 
     # --- lm-train: OLMo-1B trained on the card (no HBP kernel on this path) --
-    lm_train_phase(dev, smi_line)
+    train_memory = lm_train_phase(dev, smi_line)
+
+    # --- dryrun: the abstract trace held to the two measured peaks ---------
+    dryrun_phase(spec, smi_line, lm_memory, train_memory)
 
     # --- 7. times on m4_kron16 (and the fused sum on m10_ohne2) --------------
     def csr_tensor(csr):

@@ -41,7 +41,7 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
 
-    counts = cs.lm_phase(torch.device("cuda"), spec_for(torch.cuda.get_device_name(0)), smi,
+    counts, _ = cs.lm_phase(torch.device("cuda"), spec_for(torch.cuda.get_device_name(0)), smi,
                          reset_counts, lambda names: {n: wrappers[n].launches for n in names})
     cs.log(f"[lm] kernel launches: {counts}")
 

@@ -1,4 +1,10 @@
-"""Render a ``repro_torch.obs.dump()`` snapshot, or compare two.
+"""Render the dry-run tables, a ``repro_torch.obs.dump()`` snapshot, or a comparison.
+
+With no mode flag, the roofline and dry-run tables of the records that
+``python -m repro_torch.launch.dryrun`` wrote to ``--dir``, the JAX
+package's tables for the same records::
+
+    PYTHONPATH=src python -m repro_torch.analysis.report --dir experiments/dryrun_torch
 
 ``--obs PATH`` re-renders the text dashboard (counters, histograms, span
 aggregates, amortized-preprocess ledger, bandwidth attribution)::
@@ -39,13 +45,109 @@ import argparse
 import json
 from pathlib import Path
 
+ARCH_ORDER = [
+    "llava-next-34b", "olmo-1b", "mistral-nemo-12b", "internlm2-20b",
+    "nemotron-4-340b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+    "mamba2-370m", "jamba-1.5-large-398b", "seamless-m4t-large-v2",
+]
+SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
 
 def _load(path) -> dict:
     return json.loads(Path(path).read_text())
 
 
+def load(dirpath: Path):
+    """The dry-run records of a directory, by (arch, shape, mesh)."""
+    recs = {}
+    for p in Path(dirpath).glob("*.json"):
+        r = json.loads(p.read_text())
+        recs[(r["arch"], r["shape"], r["mesh"])] = r
+    return recs
+
+
+def fmt_s(x: float) -> str:
+    if x >= 1:
+        return f"{x:.2f}s"
+    return f"{x*1e3:.1f}ms"
+
+
+def roofline_table(recs) -> str:
+    lines = [
+        "| arch | shape | compute | memory | collective | bound | t_bound | useful/HLO | fits |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for arch in ARCH_ORDER:
+        for shape in SHAPE_ORDER:
+            r = recs.get((arch, shape, "single"))
+            if r is None:
+                lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | MISSING |")
+                continue
+            if r["status"] == "skipped":
+                lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | skip (full-attn @500k) |")
+                continue
+            if r["status"] != "ok" or "roofline" not in r:
+                lines.append(f"| {arch} | {shape} | — | — | — | — | — | — | {r['status']} |")
+                continue
+            rf = r["roofline"]
+            tb = max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
+            ratio = r.get("model_flops_ratio") or 0
+            lines.append(
+                f"| {arch} | {shape} | {fmt_s(rf['t_compute_s'])} | "
+                f"{fmt_s(rf['t_memory_s'])} | {fmt_s(rf['t_collective_s'])} | "
+                f"{rf['bottleneck']} | {fmt_s(tb)} | {ratio:.2f} | "
+                f"{'✓' if r['fits_hbm'] else 'OVER'} |"
+            )
+    return "\n".join(lines)
+
+
+def dryrun_table(recs) -> str:
+    lines = [
+        "| arch | shape | mesh | status | peak GiB | fits | compile s | n_micro |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for arch in ARCH_ORDER:
+        for shape in SHAPE_ORDER:
+            for mesh in ("single", "multipod"):
+                r = recs.get((arch, shape, mesh))
+                if r is None:
+                    lines.append(f"| {arch} | {shape} | {mesh} | MISSING | | | | |")
+                    continue
+                if r["status"] != "ok":
+                    lines.append(
+                        f"| {arch} | {shape} | {mesh} | {r['status']} | | | | |"
+                    )
+                    continue
+                m = r["memory"]
+                lines.append(
+                    f"| {arch} | {shape} | {mesh} | ok | "
+                    f"{m['peak_estimate_bytes']/2**30:.2f} | "
+                    f"{'✓' if r['fits_hbm'] else 'OVER'} | {r['compile_s']} | "
+                    f"{r.get('n_microbatch', '')} |"
+                )
+    return "\n".join(lines)
+
+
+def fleet_stats(recs) -> str:
+    """One line of counts; the memory a record fits in is its own
+    ``memory.hbm_bytes``."""
+    ok = [r for r in recs.values() if r["status"] == "ok"]
+    skipped = [r for r in recs.values() if r["status"] == "skipped"]
+    err = [r for r in recs.values() if r["status"] == "error"]
+    fits = [r for r in ok if r.get("fits_hbm")]
+    budget = " or ".join(f"{b / 1e9:g} GB" for b in
+                         sorted({r["memory"]["hbm_bytes"] for r in ok})) or "—"
+    return (
+        f"cells: {len(recs)} recorded — {len(ok)} compiled ok "
+        f"({len(fits)} fit in {budget}/chip), {len(skipped)} skipped per "
+        f"assignment sheet, {len(err)} errors"
+    )
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dir", default="experiments/dryrun_torch",
+                    help="the dry-run records to render (no mode flag given)")
     ap.add_argument("--obs", default=None, metavar="PATH",
                     help="render the dashboard from a repro_torch.obs.dump() snapshot")
     ap.add_argument("--attribution", default=None, metavar="PATH",
@@ -95,7 +197,12 @@ def main(argv=None) -> None:
 
         print(render(_load(args.obs), hw=hw))
     else:
-        ap.error("give one of --obs, --attribution, --requests, --explain, --diff")
+        recs = load(Path(args.dir))
+        print("## §Roofline (single-pod 16×16, per-device per-step seconds)\n")
+        print(roofline_table(recs))
+        print("\n## §Dry-run matrix\n")
+        print(fleet_stats(recs) + "\n")
+        print(dryrun_table(recs))
 
 
 if __name__ == "__main__":

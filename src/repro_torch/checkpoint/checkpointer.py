@@ -24,8 +24,10 @@ package restores a checkpoint the other wrote.
 * ``keep`` — only the newest ``keep`` step directories stay.
 
 ``restore`` places each leaf on its template leaf's device (or on
-``device``) in the template's dtype.  Not ported yet: the JAX package's
-``shardings=`` (an elastic restore onto another mesh).
+``device``, or where ``shardings`` says) in the template's dtype.
+``shardings`` is a tree of :class:`~repro_torch.models.params.NamedSharding`
+mirroring the template, as in the JAX package's elastic restore; its meshes
+must hold one device (a larger mesh raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.params import place, require_one_device
 
 __all__ = ["Checkpointer"]
 
@@ -165,10 +169,14 @@ class Checkpointer:
             return None
         return int(steps[-1].name.split("_")[1])
 
-    def restore(self, template, *, step: Optional[int] = None, device=None):
+    def restore(self, template, *, step: Optional[int] = None, shardings=None, device=None):
         """Restore into the structure of ``template`` (a tree of tensors):
-        each leaf in its template leaf's dtype, on ``device`` or else on
-        the template leaf's device.  Returns ``(tree, step)``."""
+        each leaf in its template leaf's dtype, on its sharding's device
+        (``shardings``, a tree mirroring ``template``), else on ``device``,
+        else on the template leaf's device.  Returns ``(tree, step)``."""
+        by_key = None if shardings is None else dict(_flatten(shardings))
+        for s in (by_key or {}).values():
+            require_one_device(s.mesh, "Checkpointer.restore(shardings=)")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -185,6 +193,8 @@ class Checkpointer:
             if tuple(t.shape) != tuple(tmpl.shape):
                 raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs "
                                  f"{tuple(tmpl.shape)}")
+            if by_key is not None:
+                return place(t.to(tmpl.dtype), by_key[key])
             return t.to(device=tmpl.device if device is None else device, dtype=tmpl.dtype)
 
         return _rebuild(template, load), step

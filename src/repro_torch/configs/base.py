@@ -82,6 +82,11 @@ class ModelConfig:
         return -(-h // step) * step
 
     @property
+    def ssm_inner(self) -> int:
+        """The SSM's inner width, ``ssm_expand * d_model``."""
+        return self.ssm_expand * self.d_model
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 256 (the JAX package shards
         the vocab dim over a model axis; odd vocabs such as granite 49155,

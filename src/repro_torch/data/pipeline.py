@@ -13,7 +13,7 @@ stream is
 
 Both packages draw the same tokens for the same ``(seed, step, lo, hi)``.
 :func:`make_global_batch` puts a step's batch on the card (or on
-``device``) as int64 token ids.
+``device``, or on a mesh's device) as int64 token ids.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.params import place, require_one_device
 
 __all__ = ["DataConfig", "SyntheticLM", "make_global_batch"]
 
@@ -69,7 +70,22 @@ class SyntheticLM:
             step += 1
 
 
-def make_global_batch(stream: SyntheticLM, step: int, device=None) -> Dict[str, torch.Tensor]:
-    """Step ``step``'s global batch on ``device`` (default: the card)."""
+def make_global_batch(stream: SyntheticLM, step: int, device=None, *, mesh=None,
+                      sharding=None) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s global batch on ``device`` (default: the card).
+
+    ``mesh`` (a ``DeviceMesh``) puts it on the mesh's device instead, and
+    ``sharding`` (a dict of
+    :class:`~repro_torch.models.params.NamedSharding` by key) each entry on
+    its sharding's; either must hold one device (a larger mesh raises
+    ``NotImplementedError``), and the tokens are those of the call
+    without it."""
+    if mesh is not None:
+        require_one_device(mesh, "make_global_batch(mesh=)")
+        device = mesh.device_type
+    host = stream.batch_at(step)
+    if sharding is not None:
+        return {k: place(torch.from_numpy(v).to(torch.int64), sharding[k])
+                for k, v in host.items()}
     dev = resolve_device(device)
-    return {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.batch_at(step).items()}
+    return {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in host.items()}

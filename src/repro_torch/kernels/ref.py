@@ -18,9 +18,15 @@ would change from run to run and with the batch width.  Tiles are sorted
 by row group, so the combine is :func:`torch.segment_reduce` over the
 contiguous runs, which adds each run's tiles in stream order, one output
 element at a time.
+
+:func:`count_traversals` counts walks over the packed (data, cols) tile
+stream with their x gathers, as the JAX package's does: each plain
+version's lane walk adds one, so the one-pass argmax counts 1 and the
+three-pass argmax 3.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -41,8 +47,28 @@ __all__ = [
     "hbp_spmm_hashed_max",
     "hbp_spmm_hashed_argmax",
     "hbp_spmm_hashed_argmax_onepass",
+    "count_traversals",
     "unpermute",
 ]
+
+_TRAVERSALS = [0]
+
+
+def _traverse() -> None:
+    _TRAVERSALS[0] += 1
+
+
+@contextlib.contextmanager
+def count_traversals():
+    """Context manager yielding a 1-element list that, on exit, holds the
+    number of tile-stream traversals the plain versions made inside the
+    block."""
+    start = _TRAVERSALS[0]
+    box = [0]
+    try:
+        yield box
+    finally:
+        box[0] = _TRAVERSALS[0] - start
 
 
 def _run_lengths(rowgroup, n_rowgroups, lengths):
@@ -154,6 +180,7 @@ def tile_contrib_ref(
     x_blocked: torch.Tensor,  # f32[n_col_blocks, col_block]
 ) -> torch.Tensor:
     """Per-tile partial results ``[T, group]`` — oracle of the SpMV part."""
+    _traverse()
     n_cb, col_block = x_blocked.shape
     gathered = _gather(x_blocked.reshape(n_cb * col_block), colblock, cols, col_block)
     return (data * gathered).sum(dim=2)
@@ -174,6 +201,7 @@ def tile_contrib_spmm_ref(
     x_blocked: torch.Tensor,  # f32[n_col_blocks, col_block, k]
 ) -> torch.Tensor:
     """Per-tile partial blocks ``[T, group, k]`` — oracle of the SpMM part."""
+    _traverse()
     n_cb, col_block, k = x_blocked.shape
     gathered = _gather(x_blocked.reshape(n_cb * col_block, k), colblock, cols, col_block)
     return torch.einsum("tgl,tglk->tgk", data, gathered)
@@ -204,6 +232,7 @@ def lane_chain(
     ``colblock[t] * col_block + cols[t, g, l]``; ``x_flat`` need not be
     padded to whole column blocks.
     """
+    _traverse()
     base = colblock.long()[:, None] * col_block  # [T, 1]
     cols = cols.long()
     acc = data[:, :, 0, None] * x_flat[base + cols[:, :, 0]]
@@ -246,6 +275,7 @@ def lane_max(
     version, the ``"stable"``/``"reference"`` path and the oracle at once;
     each step is :func:`ieee_max`.
     """
+    _traverse()
     base = colblock.long()[:, None] * col_block  # [T, 1]
     cols = cols.long()
     neg = torch.tensor(float("-inf"), dtype=x_flat.dtype, device=x_flat.device)
@@ -319,6 +349,7 @@ def hbp_spmm_hashed_argmax(
     y_t = y[rg]  # [T, group, k]: each tile's target row values
 
     # pass 2: the lowest winning global column, as a max of the negated id
+    _traverse()
     acc = None
     for lane in range(data.shape[2]):
         d, gcol, prod = _slot(colblock, data, cols, x_flat, col_block, lane)
@@ -330,6 +361,7 @@ def hbp_spmm_hashed_argmax(
     idx = torch.where(live, -neg_idx, -1)
 
     # pass 3: the winner's stored coefficient (one per (row, column))
+    _traverse()
     idx_t = idx[rg]
     neg = torch.tensor(float("-inf"), dtype=data.dtype, device=data.device)
     acc_c = None
@@ -358,6 +390,7 @@ def hbp_spmm_hashed_argmax_onepass(
     ``[T, group, k]`` are then combined over each row group's run without
     touching the tile stream again.
     """
+    _traverse()
     n_cb, col_block, k = x_blocked.shape
     x_flat = x_blocked.reshape(n_cb * col_block, k)
     neg = torch.tensor(float("-inf"), dtype=data.dtype, device=data.device)

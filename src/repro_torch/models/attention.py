@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from .layers import rope, wide
 from .params import ParamDef, dtype_of
 
-__all__ = ["attention_defs", "attention_apply", "init_attn_cache"]
+__all__ = ["attention_defs", "attention_apply", "init_attn_cache", "ATTN_CACHE_LOGICAL"]
 
 _DENSE_LIMIT = 1 << 22  # Sq*Skv above this -> blockwise path
 _NEG = -1e30
@@ -62,6 +62,15 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, lead=())
     if cfg.mla_kv_lora:
         return {"ckv": z(batch, max_len, cfg.mla_kv_lora), "kpe": z(batch, max_len, cfg.mla_rope_dim)}
     return {"k": z(batch, max_len, cfg.n_kv_heads, hd), "v": z(batch, max_len, cfg.n_kv_heads, hd)}
+
+
+# logical axes of the decode cache's leaves (for their specs)
+ATTN_CACHE_LOGICAL = {
+    "ckv": ("cache_batch", None, "kv_embed"),
+    "kpe": ("cache_batch", None, None),
+    "k": ("cache_batch", None, "kv_heads", "head_dim"),
+    "v": ("cache_batch", None, "kv_heads", "head_dim"),
+}
 
 
 # ---------------------------------------------------------------------------

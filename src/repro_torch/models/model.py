@@ -12,6 +12,12 @@ modes the serving engine and the train step use:
 * prefill — full sequence, writes the decode cache;
 * decode — one token against the cache (``tokens [B, 1]``);
 * encoder-decoder — frames → encoder, tokens → decoder with cross-attention.
+
+:meth:`Model.abstract`, :meth:`Model.abstract_cache` and
+:func:`input_specs` give ``meta`` tensors (shapes and dtypes, nothing
+allocated) of a cell's parameters, cache and inputs; :meth:`Model.specs`
+and :meth:`Model.cache_specs` their specs under a rule set on a mesh, as
+the JAX package's do.
 """
 from __future__ import annotations
 
@@ -20,14 +26,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.ops import resolve_device
 
 from .layers import apply_norm, embed_apply, embed_defs, logits_apply, norm_defs
-from .params import dtype_of, init_params
-from .transformer import init_stack_cache, stack_apply, stack_defs_for
+from .params import (
+    Rules,
+    abstract_params,
+    dtype_of,
+    init_params,
+    logical_spec,
+    param_specs,
+    tree_map,
+)
+from .transformer import init_stack_cache, stack_apply, stack_cache_logical, stack_defs_for
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "input_specs"]
 
 
 @dataclasses.dataclass
@@ -39,6 +53,13 @@ class Model:
     def init(self, generator: torch.Generator, *, device=None) -> Dict[str, Any]:
         """Parameters on ``device`` (default: the card) in the config's dtype."""
         return init_params(self.defs, generator, dtype=dtype_of(self.cfg), device=device)
+
+    def abstract(self, device="meta") -> Dict[str, Any]:
+        """Empty parameters of the config's dtype on ``device``."""
+        return abstract_params(self.defs, dtype=dtype_of(self.cfg), device=device)
+
+    def specs(self, rules: Rules, mesh) -> Dict[str, Any]:
+        return param_specs(self.defs, rules, mesh)
 
     # ------------------------------------------------------------------ cache
     def init_cache(self, batch: int, max_len: int, cross_len: int | None = None, *,
@@ -55,6 +76,17 @@ class Model:
                 device=resolve_device(device), cross_len=cross,
             )
         }
+
+    def abstract_cache(self, batch: int, max_len: int, cross_len: int | None = None, *,
+                       device="meta") -> Dict[str, Any]:
+        """:meth:`init_cache` on ``device`` (``meta``: nothing allocated)."""
+        return self.init_cache(batch, max_len, cross_len, device=device)
+
+    def cache_specs(self, rules: Rules, mesh, batch: int, max_len: int) -> Dict[str, Any]:
+        logical = {"dec": stack_cache_logical(self.cfg, n_layers=self.cfg.n_layers,
+                                              cross=self.cfg.is_encdec)}
+        return tree_map(lambda s, l: logical_spec(tuple(s.shape), l.axes, rules, mesh),
+                        self.abstract_cache(batch, max_len), logical)
 
     # ---------------------------------------------------------------- forward
     def encode(self, params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
@@ -112,3 +144,24 @@ def build_model(cfg: ModelConfig) -> Model:
         defs["enc"] = stack_defs_for(enc_cfg, n_layers=cfg.encoder_layers)
         defs["enc_norm"] = norm_defs(cfg)
     return Model(cfg, defs)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta") -> Dict[str, torch.Tensor]:
+    """Empty stand-ins (``meta`` by default) for every model input of a cell.
+
+    * train   — tokens are both inputs and (shifted) labels;
+    * prefill — the full prompt;
+    * decode  — one new token (the cache comes from :meth:`Model.abstract_cache`).
+
+    Token ids are int64 (the port's); modality frontends are stubs whose
+    precomputed patch/frame embeddings appear as explicit inputs.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg)
+    empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=device)
+    specs = {"tokens": empty(B, 1 if shape.kind == "decode" else S, dtype=torch.int64)}
+    if cfg.frontend == "vision" and shape.kind != "decode":
+        specs["patch_embeds"] = empty(B, min(cfg.frontend_tokens, S), cfg.d_model)
+    if cfg.is_encdec and shape.kind != "decode":
+        specs["frames"] = empty(B, S, cfg.d_model)
+    return specs

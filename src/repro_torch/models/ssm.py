@@ -22,12 +22,12 @@ from repro_torch.configs.base import ModelConfig
 from .layers import rmsnorm
 from .params import ParamDef, dtype_of
 
-__all__ = ["mamba_defs", "mamba_apply", "init_mamba_cache", "ssd_chunked"]
+__all__ = ["mamba_defs", "mamba_apply", "init_mamba_cache", "ssd_chunked", "MAMBA_CACHE_LOGICAL"]
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
     d = cfg.d_model
-    di = cfg.ssm_expand * d
+    di = cfg.ssm_inner
     n = cfg.ssm_state
     hp = cfg.ssm_head_dim
     nh = di // hp
@@ -61,6 +61,13 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device, lead=()):
                             device=device),
         "state": torch.zeros(lead + (batch, nh, n, hp), dtype=torch.float32, device=device),
     }
+
+
+# logical axes of the decode cache's leaves (for their specs)
+MAMBA_CACHE_LOGICAL = {
+    "conv": ("cache_batch", None, "ssm_conv_ch"),
+    "state": ("cache_batch", "ssm_heads", None, None),
+}
 
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -26,6 +26,7 @@ stack.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,19 +34,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
-from .attention import attention_apply, attention_defs, init_attn_cache
+from .attention import ATTN_CACHE_LOGICAL, attention_apply, attention_defs, init_attn_cache
 from .layers import apply_norm, grad_dtype_guard, mlp_apply, mlp_defs, norm_defs
 from .moe import moe_apply, moe_defs
 from .params import dtype_of, stack_defs, tree_map
-from .ssm import init_mamba_cache, mamba_apply, mamba_defs
+from .ssm import MAMBA_CACHE_LOGICAL, init_mamba_cache, mamba_apply, mamba_defs
 
 __all__ = [
+    "LogicalAxes",
     "block_defs",
     "block_apply",
     "stack_defs_for",
     "stack_apply",
     "init_stack_cache",
+    "stack_cache_logical",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalAxes:
+    """Leaf marker carrying the logical axis names of a non-parameter
+    tensor (a decode cache's)."""
+
+    axes: Tuple[Optional[str], ...]
 
 
 def _sqrt_factor(n: int) -> int:
@@ -269,3 +280,33 @@ def init_stack_cache(cfg: ModelConfig, *, n_layers: int, batch: int, max_len: in
                 for j, kind in enumerate(period_kinds)
             }
     return cache
+
+
+def _block_cache_logical(cfg, kind, *, cross: bool = False):
+    mixer, _ = kind
+    c: Dict[str, Any] = {}
+    if mixer == "attn":
+        keys = ("ckv", "kpe") if cfg.mla_kv_lora else ("k", "v")
+        c["attn"] = {k: LogicalAxes(ATTN_CACHE_LOGICAL[k]) for k in keys}
+    else:
+        c["mamba"] = {k: LogicalAxes(MAMBA_CACHE_LOGICAL[k]) for k in ("conv", "state")}
+    if cross:
+        c["cross"] = {k: LogicalAxes(ATTN_CACHE_LOGICAL[k]) for k in ("k", "v")}
+    return c
+
+
+def stack_cache_logical(cfg: ModelConfig, *, n_layers: int, cross: bool = False):
+    """The structure of :func:`init_stack_cache` with :class:`LogicalAxes`
+    leaves (for the cache's specs)."""
+    prologue_kinds, period_kinds, n_groups = _pattern(cfg, n_layers)
+    tree: Dict[str, Any] = {}
+    for i, kind in enumerate(prologue_kinds):
+        tree[f"pro{i}"] = _block_cache_logical(cfg, kind, cross=cross)
+    group = {f"l{j}": _block_cache_logical(cfg, kind, cross=cross)
+             for j, kind in enumerate(period_kinds)}
+    if cfg.scan_layers:
+        tree["stack"] = tree_map(lambda l: LogicalAxes(("layers",) + l.axes), group)
+    else:
+        for g in range(n_groups):
+            tree[f"g{g}"] = group
+    return tree

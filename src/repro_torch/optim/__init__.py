@@ -8,6 +8,7 @@ from .adamw import (
     init_opt_state,
     load_opt_state,
     lr_schedule,
+    opt_state_specs,
 )
 from .compression import TopKCompressor
 
@@ -19,4 +20,5 @@ __all__ = [
     "init_opt_state",
     "load_opt_state",
     "lr_schedule",
+    "opt_state_specs",
 ]

@@ -21,8 +21,9 @@ stack) is updated one slice of axis 0 at a time, as the JAX package's
 ``lax.map`` does, so the f32 update chain's transients stay one layer's
 size; the result is bit for bit the whole-leaf update's.
 
-Not ported yet: ``opt_state_specs`` (the moments' shardings over a device
-mesh), which comes with the mesh surfaces.
+:func:`opt_state_specs` gives the moments' specs over a mesh: they inherit
+the parameter specs, so the optimizer state is sharded exactly like the
+FSDP weights.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ __all__ = [
     "init_opt_state",
     "adamw_update",
     "load_opt_state",
+    "opt_state_specs",
     "tree_flatten",
     "tree_leaves",
     "update_per_layer",
@@ -160,6 +162,27 @@ def init_opt_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
         "v": _tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def opt_state_specs(params_abs, param_specs, cfg: AdamWConfig, mesh=None) -> Dict[str, Any]:
+    """The moments' specs (tuples, as :func:`repro_torch.models.params.logical_spec`
+    gives) for a dict tree of parameters and their specs.  f32 moments
+    mirror the parameter specs; int8 moments keep the parameter's shape, so
+    ``q`` reuses its spec and the per-row ``scale`` drops the last dim."""
+
+    def mom(p, spec):
+        if cfg.state_dtype != "int8":
+            return spec
+        entries = tuple(spec) + (None,) * (p.dim() - len(spec))
+        return QTensor(entries, entries[:-1] + (None,))
+
+    def zip_map(p, s):
+        if isinstance(p, dict):
+            return {k: zip_map(p[k], s[k]) for k in p}
+        return mom(p, s)
+
+    return {"m": zip_map(params_abs, param_specs), "v": zip_map(params_abs, param_specs),
+            "step": ()}
 
 
 def _global_norm(leaves) -> torch.Tensor:

@@ -14,6 +14,13 @@ The JAX package's ``repro.train.steps`` on PyTorch tensors:
 Gradients come from ``torch.autograd.grad`` with respect to detached
 copies of the parameter leaves, so the train state stays a plain dict of
 tensors with no autograd history, mirroring the JAX package's pytree.
+
+``param_shardings`` (a tree of
+:class:`~repro_torch.models.params.NamedSharding` mirroring the
+parameters) places the gradients and the accumulation buffer on their
+mesh's device, where the JAX package constrains them to the parameter
+layout.  The mesh must hold one device: the step is then bit for bit the
+step without it; a larger mesh raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,14 @@ import torch
 
 from repro_torch.models.layers import wide
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state, tree_flatten
+from repro_torch.models.params import place, require_one_device
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_update,
+    init_opt_state,
+    tree_flatten,
+    tree_leaves,
+)
 
 __all__ = ["loss_fn", "make_train_step", "init_train_state"]
 
@@ -70,10 +84,19 @@ def make_train_step(
     *,
     n_microbatch: int = 1,
     remat: bool = True,
+    param_shardings=None,
     acc_dtype=torch.float32,
 ):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the
     metrics are tensors on the state's device (reading one syncs)."""
+    shardings = None if param_shardings is None else tree_leaves(param_shardings)
+    for s in shardings or ():
+        require_one_device(s.mesh, "make_train_step(param_shardings=)")
+
+    def constrain(leaves):
+        if shardings is None:
+            return leaves
+        return [place(t, s) for t, s in zip(leaves, shardings)]
 
     def grads_of(params, batch):
         leaves, rebuild = tree_flatten(params)
@@ -81,7 +104,7 @@ def make_train_step(
         loss, parts = loss_fn(model, rebuild(live), batch, remat=remat)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads, rebuild
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, constrain(grads), rebuild
 
     def train_step(state, batch):
         params = state["params"]
@@ -94,7 +117,8 @@ def make_train_step(
             for i in range(n_microbatch):
                 loss, parts, g, rebuild = grads_of(params, {k: v[i] for k, v in micro.items()})
                 if acc is None:
-                    acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device) for p in g]
+                    acc = constrain([torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
+                                     for p in g])
                 for a, gg in zip(acc, g):
                     a.add_(gg.to(acc_dtype) / n_microbatch)
                 del g

@@ -35,7 +35,7 @@ def test_the_scan_covers_the_lm_modules():
                  "serve/engine.py", "serve/steps.py", "launch/serve.py",
                  "core/sparse_linear.py", "train/steps.py", "train/trainer.py",
                  "checkpoint/checkpointer.py", "data/pipeline.py", "optim/compression.py",
-                 "launch/train.py"):
+                 "launch/train.py", "launch/mesh.py", "launch/dryrun.py"):
         assert want in names, want
 
 
@@ -70,6 +70,9 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
         "import repro_torch.launch.serve, repro_torch.core.sparse_linear\n"
         "import repro_torch.train.trainer, repro_torch.checkpoint, repro_torch.data\n"
         "import repro_torch.optim.compression, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing the mesh starts no group\n"
         "bad = [m for m in ('jax', 'triton', 'repro', 'ml_dtypes') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

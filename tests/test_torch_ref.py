@@ -92,3 +92,35 @@ def test_segment_max_sorted_matches_jax_segment_max():
     np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
     empty = tref.segment_max_sorted(torch.zeros((0, 8)), torch.zeros(0, dtype=torch.int32), 3)
     assert empty.shape == (3, 8) and torch.all(torch.isneginf(empty))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_count_traversals_matches_jax(k):
+    """The tile-stream traversal count: the one-pass argmax walks the stream
+    once and the three-pass chain three times, as the JAX package counts
+    (``tests/test_onepass.py``), and each plain reference walk once."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+
+    tj, dt = _tiles(8)
+    X = np.random.default_rng(k).standard_normal((tj.shape[1], k)).astype(np.float32)
+    xb = tops.blocked_matrix(torch.as_tensor(X), tj.cfg.col_block)
+    jxb = np.asarray(xb)
+    targs = (dt.rowgroup, dt.colblock, dt.data, dt.cols, xb)
+    jargs = (tj.rowgroup, tj.colblock, tj.data, tj.cols, jxb)
+    calls = (("hbp_spmm_hashed_argmax_onepass", 1), ("hbp_spmm_hashed_argmax", 3),
+             ("hbp_spmm_hashed_max", 1), ("hbp_spmm_hashed_stable", 1),
+             ("hbp_spmm_hashed_ref", 1))
+    for name, want in calls:
+        with tref.count_traversals() as t:
+            getattr(tref, name)(*targs, n_rowgroups=dt.n_rowgroups)
+        with jref.count_traversals() as j:
+            getattr(jref, name)(*jargs, n_rowgroups=tj.n_rowgroups)
+        assert t[0] == j[0] == want, (name, t[0], j[0])
+    with tref.count_traversals() as t:
+        tref.hbp_spmv_hashed_ref(dt.rowgroup, dt.colblock, dt.data, dt.cols, xb[..., 0],
+                                 n_rowgroups=dt.n_rowgroups)
+    with jref.count_traversals() as j:
+        jref.hbp_spmv_hashed_ref(tj.rowgroup, tj.colblock, tj.data, tj.cols, jxb[..., 0],
+                                 n_rowgroups=tj.n_rowgroups)
+    assert t[0] == j[0] == 1

@@ -53,7 +53,9 @@ SMALL = dict(row_block=64, col_block=128, group=8, lane=16)
 
 # one spec, in each package's type
 HW = troof.H100_SXM
-JHW = jroof.HardwareSpec(**dataclasses.asdict(HW))
+# (the port's spec also carries a bf16 rate, which the JAX package's lacks)
+JHW = jroof.HardwareSpec(**{f.name: getattr(HW, f.name)
+                            for f in dataclasses.fields(jroof.HardwareSpec)})
 # the spec the JAX package's dashboard renders against (it takes no hw=)
 JAX_DEFAULT = troof.HardwareSpec(**dataclasses.asdict(jroof.V5E))
 
@@ -409,7 +411,10 @@ def test_report_cli_modes(snapshots, tmp_path, capsys):
     for args, text in want.items():
         tcli.main([*args, "--hw", "NVIDIA H100 80GB HBM3"])
         assert capsys.readouterr().out == text, args
-    with pytest.raises(SystemExit):
-        tcli.main([])
+    # with no mode flag the CLI renders the dry-run tables of --dir, as the
+    # JAX package's does (an empty directory: every cell missing)
+    tcli.main(["--dir", str(tmp_path / "no_records")])
+    out = capsys.readouterr().out
+    assert "## §Dry-run matrix" in out and "cells: 0 recorded" in out and "MISSING" in out
     with pytest.raises(ValueError, match="no peak rates"):
         tcli.main(["--attribution", str(path), "--hw", "tpu_v5e"])
