@@ -23,11 +23,18 @@ package restores a checkpoint the other wrote.
   checkpoint;
 * ``keep`` — only the newest ``keep`` step directories stay.
 
+* **sharded trees** — a tree of DTensors saves each leaf's full tensor
+  (``full_tensor``: every rank takes part in the gathers); rank 0 writes
+  the layout above, as the JAX package's single host writes all, and the
+  other ranks wait for it in :meth:`Checkpointer.wait` (a barrier), so a
+  save is complete on every rank once ``wait`` returns.
+
 ``restore`` places each leaf on its template leaf's device (or on
-``device``, or where ``shardings`` says) in the template's dtype.
-``shardings`` is a tree of :class:`~repro_torch.models.params.NamedSharding`
-mirroring the template, as in the JAX package's elastic restore; its meshes
-must hold one device (a larger mesh raises ``NotImplementedError``).
+``device``) in the template's dtype, or, given ``shardings`` (a tree of
+:class:`~repro_torch.models.params.NamedSharding` mirroring the template),
+distributes it onto that sharding's mesh: the JAX package's elastic
+re-mesh, so a checkpoint saved on one mesh restores onto any other (or
+onto none).
 """
 from __future__ import annotations
 
@@ -39,8 +46,10 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.params import place, require_one_device
+from repro_torch.models.params import place
 
 __all__ = ["Checkpointer"]
 
@@ -103,6 +112,8 @@ def _treedef(tree) -> str:
 def _to_host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` as saved, and its logical dtype name."""
     t = leaf.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(np.uint16), "bfloat16"
     arr = t.to("cpu", copy=True).numpy()
@@ -115,12 +126,23 @@ class Checkpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False  # a save of DTensors: every rank waits for rank 0
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, *, blocking: bool = False) -> None:
         """Snapshot ``tree`` at ``step``; file IO runs on a worker thread."""
         self.wait()  # one in-flight save at a time
-        host = {key: _to_host(leaf) for key, leaf in _flatten(tree)}
+        leaves = list(_flatten(tree))
+        if any(isinstance(leaf, DTensor) for _, leaf in leaves):
+            self._barrier = True
+            if dist.get_rank() != 0:  # take part in the gathers; rank 0 writes
+                for _, leaf in leaves:
+                    if isinstance(leaf, DTensor):
+                        leaf.full_tensor()
+                if blocking:
+                    self.wait()
+                return
+        host = {key: _to_host(leaf) for key, leaf in leaves}
         treedef = _treedef(tree)
 
         def write():
@@ -147,6 +169,7 @@ class Checkpointer:
 
         if blocking:
             write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -155,6 +178,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            dist.barrier()
+            self._barrier = False
 
     def _gc(self) -> None:
         steps = sorted(self.dir.glob("step_*"))
@@ -171,12 +197,12 @@ class Checkpointer:
 
     def restore(self, template, *, step: Optional[int] = None, shardings=None, device=None):
         """Restore into the structure of ``template`` (a tree of tensors):
-        each leaf in its template leaf's dtype, on its sharding's device
-        (``shardings``, a tree mirroring ``template``), else on ``device``,
-        else on the template leaf's device.  Returns ``(tree, step)``."""
+        each leaf in its template leaf's dtype, distributed to its sharding
+        (``shardings``, a tree mirroring ``template``: every rank of the
+        mesh reads the leaf, and rank 0's copy is scattered), else on
+        ``device``, else on the template leaf's device.  Returns ``(tree,
+        step)``."""
         by_key = None if shardings is None else dict(_flatten(shardings))
-        for s in (by_key or {}).values():
-            require_one_device(s.mesh, "Checkpointer.restore(shardings=)")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

@@ -12,12 +12,13 @@ collective over it also crosses the nodes' network: a collective time
 taken over NVLink's ``link_bw`` (:mod:`repro_torch.analysis.roofline`) is
 a lower bound.
 
-A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` built by
-``init_device_mesh`` over the caller's process group (one rank per card;
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the
+caller's process group (one rank per card;
 ``torch.distributed.init_process_group`` with an explicit address, world
-size and rank).  :func:`make_host_mesh` is the 1x1 mesh of one process
-and starts a world-1 group (an in-process store, no address) when none is
-running.  The dry run (:mod:`repro_torch.launch.dryrun`) needs none of
+size and rank).  :func:`make_mesh` builds one of any shape the running
+world covers, the counterpart of ``jax.make_mesh``; :func:`make_host_mesh`
+is the 1x1 mesh of one process and starts a world-1 group (an in-process
+store, no address) when none is running.  The dry run (:mod:`repro_torch.launch.dryrun`) needs none of
 this: it reads shapes from an :class:`~repro_torch.models.params.AbstractMesh`.
 """
 from __future__ import annotations
@@ -27,7 +28,8 @@ import math
 import numpy as np
 import torch.distributed as dist
 
-__all__ = ["PRODUCTION_SHAPES", "make_production_mesh", "make_host_mesh", "mesh_devices"]
+__all__ = ["PRODUCTION_SHAPES", "make_mesh", "make_production_mesh", "make_host_mesh",
+           "mesh_devices"]
 
 # name -> (axis sizes, axis names)
 PRODUCTION_SHAPES = {
@@ -48,16 +50,23 @@ def mesh_devices(n: int) -> np.ndarray:
     return np.arange(n)
 
 
-def _mesh(device_type: str, shape, axes):
-    from torch.distributed.device_mesh import init_device_mesh
+def make_mesh(shape, axes, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` over the named ``axes`` on the first
+    ``prod(shape)`` ranks of the running process group, row-major as
+    ``jax.make_mesh`` lays out its devices; raises when the world is
+    smaller.  Every rank of the world calls it (a rank beyond the mesh
+    holds no coordinate on it)."""
+    from torch.distributed.device_mesh import DeviceMesh
 
-    mesh_devices(math.prod(shape))
-    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} vs axes {tuple(axes)}")
+    ranks = mesh_devices(math.prod(shape)).reshape(tuple(shape))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     shape, axes = PRODUCTION_SHAPES["multipod" if multi_pod else "single"]
-    return _mesh(device_type, shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(device_type: str = "cuda"):
@@ -66,4 +75,4 @@ def make_host_mesh(device_type: str = "cuda"):
     if not dist.is_initialized():
         backend = "nccl" if device_type == "cuda" else "gloo"
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    return _mesh(device_type, (1, 1), ("data", "model"))
+    return make_mesh((1, 1), ("data", "model"), device_type)

@@ -16,17 +16,25 @@ float32; a float64 model stays in float64), the softmax runs in that
 type and the probabilities are cast to v's dtype.  The decode cache is
 written in place: the caller's cache tensors are the new cache (the JAX
 engine donates its cache for the same effect).
+
+On a mesh q, k and v are DTensors.  Attention is independent per batch
+row and head, so :func:`_attend` constrains them to ``("batch", None,
+"act_heads", None)`` (the batch over ``("pod", "data")``, the heads over
+``model`` where their count divides it) and each rank runs the dense or
+blockwise attention above on its own rows and heads, as plain tensors;
+the output keeps q's placements.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 
 from .layers import rope, wide
-from .params import ParamDef, dtype_of
+from .params import ParamDef, dtype_of, shard
 
 __all__ = ["attention_defs", "attention_apply", "init_attn_cache", "ATTN_CACHE_LOGICAL"]
 
@@ -133,10 +141,36 @@ def _blockwise_attend(q, k, v, q_pos, k_pos, causal: bool, q_chunk=512, kv_chunk
 
 
 def _attend(q, k, v, q_pos, k_pos, causal, k_valid=None):
+    if isinstance(q, DTensor):
+        return _attend_local(q, k, v, q_pos, k_pos, causal, k_valid)
     Sq, Skv = q.shape[1], k.shape[1]
     if Sq * Skv <= _DENSE_LIMIT or Sq == 1:
         return _dense_attend(q, k, v, q_pos, k_pos, causal, k_valid)
     return _blockwise_attend(q, k, v, q_pos, k_pos, causal)
+
+
+def _attend_local(q, k, v, q_pos, k_pos, causal, k_valid=None):
+    """:func:`_attend` of DTensors: each rank over its own batch rows and
+    heads (the sequence and head dims whole)."""
+    q, k, v = (shard(t, "batch", None, "act_heads", None) for t in (q, k, v))
+    for t in (q, k, v):
+        if t.placements != q.placements or not all(
+                p.is_replicate() or p.is_shard(0) or p.is_shard(2) for p in t.placements):
+            raise ValueError(f"attention over DTensors sharded as {t.placements} (q: "
+                             f"{q.placements}); run it inside a sharding_ctx")
+    out = _attend(q.to_local(), k.to_local(), v.to_local(), q_pos, k_pos, causal, k_valid)
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bsd,dhk->bshk`` as one product over the flattened heads: a flatten
+    whose first dim is the sharded one, which DTensor carries on a mesh."""
+    return (x @ w.flatten(1)).unflatten(-1, tuple(w.shape[1:]))
+
+
+def _unheads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bqhd,hdo->bqo`` as one product over the flattened heads."""
+    return o.flatten(-2) @ w.flatten(0, 1)
 
 
 def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -156,7 +190,7 @@ def _gqa(p, x, cfg: ModelConfig, pos0: int, cache, kv_x, causal, is_cross=False)
     KH = cfg.n_kv_heads
     H = p["wq"].shape[1]  # padded head count (from the weights)
     G = H // KH
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = _heads(x, p["wq"])
     q_pos = pos0 + torch.arange(S, device=x.device)
     is_cross = is_cross or kv_x is not None
     k_valid = None
@@ -168,8 +202,8 @@ def _gqa(p, x, cfg: ModelConfig, pos0: int, cache, kv_x, causal, is_cross=False)
     elif is_cross and cache is not None:
         # cross-attention prefill: compute encoder K/V once, store them
         # (the rest of the cache zeroed, as the JAX package pads)
-        k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
+        k = _heads(kv_x, p["wk"])
+        v = _heads(kv_x, p["wv"])
         n = k.shape[1]
         for name, t in (("k", k), ("v", v)):
             cache[name][:, :n] = t.to(cache[name].dtype)
@@ -177,8 +211,8 @@ def _gqa(p, x, cfg: ModelConfig, pos0: int, cache, kv_x, causal, is_cross=False)
         k_pos = torch.arange(n, device=x.device)
     else:
         src = kv_x if is_cross else x
-        k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+        k = _heads(src, p["wk"])
+        v = _heads(src, p["wv"])
         if not is_cross:
             q = rope(q, q_pos, cfg.rope_theta)
             k = rope(k, q_pos, cfg.rope_theta)
@@ -195,7 +229,7 @@ def _gqa(p, x, cfg: ModelConfig, pos0: int, cache, kv_x, causal, is_cross=False)
     kf = _expand_kv(k.to(q.dtype), G)
     vf = _expand_kv(v.to(q.dtype), G)
     out = _attend(q, kf, vf, q_pos, k_pos, causal and not is_cross, k_valid)
-    y = torch.einsum("bqhd,hdo->bqo", out, p["wo"])
+    y = _unheads(out, p["wo"])
     return y, cache
 
 
@@ -206,7 +240,7 @@ def _mla(p, x, cfg: ModelConfig, pos0: int, cache, causal):
     r, rd = cfg.mla_kv_lora, cfg.mla_rope_dim
     q_pos = pos0 + torch.arange(S, device=x.device)
 
-    qfull = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    qfull = _heads(x, p["wq"])
     q_nope, q_pe = qfull[..., :hd], rope(qfull[..., hd:], q_pos, cfg.rope_theta, head_axes=1)
     ckv_full = x @ p["wkv_a"]
     c_kv, k_pe = ckv_full[..., :r], rope(ckv_full[..., r:], q_pos, cfg.rope_theta, head_axes=0)
@@ -232,12 +266,12 @@ def _mla(p, x, cfg: ModelConfig, pos0: int, cache, causal):
         heads = torch.einsum("bqhr,rhd->bqhd", lat, p["wv_b"])
     else:
         # train/prefill: expand per-head keys/values from the latent
-        k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["wk_b"])
-        vv = torch.einsum("bsr,rhd->bshd", c_kv, p["wv_b"])
+        k_nope = _heads(c_kv, p["wk_b"])
+        vv = _heads(c_kv, p["wv_b"])
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, rd)], -1)
         q = torch.cat([q_nope, q_pe], -1)  # [B,S,H,hd+rd]
         heads = _attend(q, k.to(q.dtype), vv.to(q.dtype), q_pos, q_pos, causal)
-    y = torch.einsum("bqhd,hdo->bqo", heads, p["wo"])
+    y = _unheads(heads, p["wo"])
     return y, cache
 
 

@@ -7,6 +7,12 @@ JAX package asks for it (norms, rotary angles, logits); a float64 model
 keeps float64 there (:func:`wide`), so that it can serve as a reference
 computed wholly in float64.  None of this is a Pallas kernel in the JAX
 package; it stays PyTorch code here.
+
+On a mesh the activations are DTensors: the constant tables (the rotary
+angles, the padded-vocab mask) become replicated DTensors beside them
+(:func:`~.params.replicate_like`), and :func:`embed_apply` and
+:func:`logits_apply` constrain their outputs with
+:func:`~.params.shard` where the JAX package does.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
-from .params import ParamDef
+from .params import ParamDef, replicate_like, shard
 
 __all__ = [
     "grad_dtype_guard",
@@ -97,7 +103,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, head_axes: int 
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., None].float() * freq  # pos.shape + [half]
     ang = ang.reshape(ang.shape[:-1] + (1,) * head_axes + (half,))
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = replicate_like(torch.cos(ang), x), replicate_like(torch.sin(ang), x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -153,16 +159,26 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def embed_apply(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # The JAX package contracts a one-hot with the table for S > 1 (its
-    # gradient is then a sharded matmul); each output row is one product
-    # 1·x plus zeros, so a gather gives the same bits.
-    return p["tok"][tokens]
+    if tokens.shape[-1] == 1:  # decode: one token, no gradient, a gather
+        x = p["tok"][tokens]
+    else:
+        # train/prefill: the JAX package's one-hot contraction, whose
+        # gradient is a (sharded) matmul where a gather's is a scatter-add
+        # into the whole table; each output row is one product 1·x plus
+        # zeros, the gather's value
+        iota = torch.arange(p["tok"].shape[0], device=tokens.device)
+        onehot = (tokens[..., None] == replicate_like(iota, tokens)).to(p["tok"].dtype)
+        x = onehot @ p["tok"]
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def logits_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    logits = wide(x @ w)
+    logits = shard(wide(x @ w), "batch", "seq", "vocab")
     if cfg.padded_vocab != cfg.vocab:
-        # mask pad columns: no effect on CE's logsumexp, never sampled
-        logits[..., cfg.vocab:] = -1e30
+        # mask pad columns: no effect on CE's logsumexp, never sampled; in
+        # place, each rank on its own columns of a vocab dim sharded over
+        # "model" (constrained first: a product may leave partial sums)
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+        logits.masked_fill_(replicate_like(pad, logits), -1e30)
     return logits

@@ -23,11 +23,28 @@ dim.  A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 counterpart of ``jax.sharding.AbstractMesh``); :func:`mesh_shape` reads
 either.
 
-The port runs the LM on one card.  :func:`shard` and
-:func:`constrain_defs` are identities outside a :func:`sharding_ctx` and
-inside one on a mesh of one device; on a mesh of more devices they raise
-``NotImplementedError`` (ROADMAP.md, item C), as does :func:`place` for a
-:class:`NamedSharding` on such a mesh.  The port's layers call neither.
+On a ``DeviceMesh`` a tensor is a ``torch.distributed.tensor.DTensor``:
+:func:`placements` maps a spec to one placement per mesh dim (``Shard(d)``
+where the spec puts tensor dim ``d`` on that mesh axis, ``Replicate()``
+elsewhere; a tuple such as ``("pod", "data")`` shards one dim over several
+mesh axes, major to minor, as ``jax.sharding`` does), and :func:`place`
+distributes a tensor to a :class:`NamedSharding` from rank 0.  Inside a
+:func:`sharding_ctx`, :func:`shard` and :func:`constrain_defs` redistribute
+a DTensor to its ``logical_spec`` (the counterparts of the JAX package's
+``with_sharding_constraint``); outside one they are identities.  Inside a
+context on a mesh of more than one device a plain tensor raises: a layer
+got an input that was never placed.  The layers make their constant tables
+(rotary angles, masks, iotas) DTensors with :func:`replicate_like`.
+
+Collectives go where the mesh's process group carries them.
+:func:`collective_route` is the one place that picks a route: a gloo group
+on the card takes DTensor's all-gather (``Shard -> Replicate``) through
+c10d's ``all_gather_into_tensor`` (:func:`c10d_all_gathers`), because the
+functional all-gather that DTensor calls kills a gloo rank on CUDA tensors
+(a segfault, torch 2.11: ``scripts/gloo_cuda_collectives.py``).  The route
+is kept per process group: NCCL, and gloo on the CPU, keep the functional
+collective in the same process.  Reduce-scatter,
+all-reduce and all-to-all keep theirs on every backend.
 """
 from __future__ import annotations
 
@@ -40,6 +57,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.kernels.ops import resolve_device
 
@@ -61,8 +80,11 @@ __all__ = [
     "logical_spec",
     "param_specs",
     "NamedSharding",
+    "placements",
     "place",
-    "require_one_device",
+    "replicate_like",
+    "collective_route",
+    "c10d_all_gathers",
     "sharding_ctx",
     "get_sharding_ctx",
     "shard",
@@ -327,22 +349,101 @@ class NamedSharding:
     spec: Tuple
 
 
-def require_one_device(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for a mesh of more than one device."""
-    n = mesh_size(mesh)
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {n} devices: the port runs the LM on one card "
-            "(ROADMAP.md, item C: the LM on more than one card)")
+def placements(spec: Tuple, mesh) -> Tuple:
+    """The DTensor placements of ``spec`` on a named ``DeviceMesh``: one per
+    mesh dim, ``Shard(d)`` where the spec puts tensor dim ``d`` on that
+    mesh axis, ``Replicate()`` elsewhere.  A dim sharded over several axes
+    splits over them major to minor, which DTensor does in mesh order: they
+    must appear in the spec in the mesh's order.  An axis of size 1 holds
+    the whole tensor whatever the spec says: it is ``Replicate()``."""
+    sizes = mesh_shape(mesh)
+    names = tuple(sizes)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in ((entry,) if isinstance(entry, str) else entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"{entry!r} shards dim {dim} over mesh axes out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            if sizes[names[i]] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+_AG = "_c10d_functional::all_gather_into_tensor"
+_C10D_GROUPS: set = set()  # names of the groups whose all-gathers take c10d's collective
+_ROUTED: Dict[str, Any] = {}  # device type -> (the registration, the functional kernel)
+
+
+def _group_name(group) -> str:
+    return group.group_name if isinstance(group, dist.ProcessGroup) else group
+
+
+def _all_gather(keyset, x: torch.Tensor, group_size: int, group_name) -> torch.Tensor:
+    # a group of _C10D_GROUPS: the functional all_gather_into_tensor's
+    # contract (dim 0, a new tensor) through c10d's collective, which waits
+    # for the result itself; every other group: the functional kernel
+    if _group_name(group_name) not in _C10D_GROUPS:
+        return _ROUTED[x.device.type][1].call_boxed(keyset, x, group_size, group_name)
+    group = group_name if isinstance(group_name, dist.ProcessGroup) else \
+        dist.distributed_c10d._resolve_process_group(group_name)
+    out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def c10d_all_gathers(mesh) -> None:
+    """Send the functional all-gathers of ``mesh``'s process groups through
+    c10d's collective.  A kernel of ``_c10d_functional::all_gather_into_tensor``
+    for the mesh's device type, installed once, picks the route by group:
+    the groups of every other mesh keep the functional kernel."""
+    dev = mesh.device_type
+    if dev not in _ROUTED:
+        functional = torch.library.get_kernel(_AG, dev.upper())
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", _all_gather, dev.upper(), with_keyset=True)
+        _ROUTED[dev] = (lib, functional)
+    _C10D_GROUPS.update(_group_name(mesh.get_group(i)) for i in range(mesh.ndim))
+
+
+def collective_route(mesh) -> str:
+    """The route of ``mesh``'s all-gathers: a gloo group on the card takes
+    c10d's collective (:func:`c10d_all_gathers`: DTensor's functional
+    all-gather kills a gloo rank on CUDA tensors), every other group the
+    functional one.  Returns ``"c10d all_gather_into_tensor"`` or
+    ``"functional all_gather_into_tensor"``, the route now in force for
+    the mesh."""
+    if mesh.device_type == "cuda" and dist.get_backend(mesh.get_group(0)) == "gloo":
+        c10d_all_gathers(mesh)
+    groups = {_group_name(mesh.get_group(i)) for i in range(mesh.ndim)}
+    return ("c10d" if groups <= _C10D_GROUPS else "functional") + " all_gather_into_tensor"
 
 
 def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """``t`` on the device of ``sharding``'s mesh, which must hold one device
-    (a ``DeviceMesh``: an :class:`AbstractMesh` has no devices)."""
-    require_one_device(sharding.mesh, "placing a tensor")
-    if isinstance(sharding.mesh, AbstractMesh):
+    """``t`` as a DTensor with ``sharding``'s placements on its mesh (a
+    ``DeviceMesh``; an :class:`AbstractMesh` has no devices).  A plain
+    tensor is distributed from rank 0 (every rank passes one of the full
+    shape); a DTensor is redistributed."""
+    mesh = sharding.mesh
+    if isinstance(mesh, AbstractMesh):
         raise ValueError("an AbstractMesh has no devices to place a tensor on")
-    return t.to(sharding.mesh.device_type)
+    collective_route(mesh)
+    want = placements(sharding.spec, mesh)
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, want)
+    return distribute_tensor(t.to(mesh.device_type), mesh, want)
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (the same on every rank: a table, a mask, an iota) as a
+    replicated DTensor on ``like``'s mesh where ``like`` is a DTensor, else
+    ``t`` itself."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -367,20 +468,36 @@ def get_sharding_ctx():
     return getattr(_CTX, "v", None)
 
 
-def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Identity outside a :func:`sharding_ctx` and on a mesh of one device;
-    raises on a larger mesh (the JAX package constrains x to it here)."""
-    ctx = get_sharding_ctx()
-    if ctx is not None:
-        require_one_device(ctx[0], "shard")
+def _constrain(x: torch.Tensor, spec: Tuple, mesh, what: str) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, placements(spec, mesh))
+    if mesh_size(mesh) > 1:
+        raise TypeError(f"{what}: a plain tensor of shape {tuple(x.shape)} on a mesh of "
+                        f"{mesh_size(mesh)} devices; place the inputs first (place, "
+                        "make_global_batch(mesh=))")
     return x
 
 
-def constrain_defs(tree: Any, defs_tree: Any) -> Any:
-    """Identity outside a :func:`sharding_ctx` and on a mesh of one device;
-    raises on a larger mesh (the JAX package pins stacked weights to their
-    mesh layout here)."""
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """``x`` redistributed to its spec under the active rules (the JAX
+    package's ``with_sharding_constraint``); identity outside a
+    :func:`sharding_ctx`."""
     ctx = get_sharding_ctx()
-    if ctx is not None:
-        require_one_device(ctx[0], "constrain_defs")
-    return tree
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    return _constrain(x, logical_spec(tuple(x.shape), tuple(logical), rules, mesh), mesh, "shard")
+
+
+def constrain_defs(tree: Any, defs_tree: Any) -> Any:
+    """Each tensor of ``tree`` redistributed to the spec its
+    :class:`ParamDef` implies; identity outside a :func:`sharding_ctx`.
+    The JAX package calls it on each group's weights inside the stacked
+    body, which pins the per-layer weight gradients to the parameter
+    layout."""
+    ctx = get_sharding_ctx()
+    if ctx is None:
+        return tree
+    mesh, rules = ctx
+    return tree_map(lambda x, d: _constrain(x, logical_spec(d.shape, d.logical, rules, mesh),
+                                            mesh, "constrain_defs"), tree, defs_tree)

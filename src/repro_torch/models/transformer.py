@@ -19,6 +19,11 @@ _sqrt_factor(n_groups) > 1``, runs of ``n_inner`` groups run under an
 outer checkpoint as well (the two-level split: the forward keeps only
 ``n_groups / n_inner`` boundary activations).
 
+On a mesh (inside a :func:`~.params.sharding_ctx`) each block's output is
+constrained to ``("batch", "seq", "act_embed")`` and each stacked group's
+weights to their defs' specs inside the (rematerialised) body, where the
+JAX package places its ``shard`` and ``constrain_defs``.
+
 Decode caches mirror the stack structure: per-layer cache dicts, stacked
 along the same leading group dimension.  Group ``g``'s cache is a view
 into the stacked tensors, so a layer's in-place cache writes land in the
@@ -37,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from .attention import ATTN_CACHE_LOGICAL, attention_apply, attention_defs, init_attn_cache
 from .layers import apply_norm, grad_dtype_guard, mlp_apply, mlp_defs, norm_defs
 from .moe import moe_apply, moe_defs
-from .params import dtype_of, stack_defs, tree_map
+from .params import constrain_defs, dtype_of, shard, stack_defs, tree_map
 from .ssm import MAMBA_CACHE_LOGICAL, init_mamba_cache, mamba_apply, mamba_defs
 
 __all__ = [
@@ -131,7 +136,7 @@ def block_apply(
         else:
             f, aux = moe_apply(p["moe"], h, cfg)
         x = x + f
-    return grad_dtype_guard(x), aux
+    return grad_dtype_guard(shard(x, "batch", "seq", "act_embed")), aux
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +194,9 @@ def stack_apply(
         x, aux = run(params[f"pro{i}"], x, None if cache is None else cache[f"pro{i}"], kind)
         aux_total = aux_total + aux
 
-    def group_apply(gp, x, gcache):
+    def group_apply(gp, x, gcache, defs=None):
+        # defs: a stacked group's weights pinned to their specs (on a mesh)
+        gp = gp if defs is None else constrain_defs(gp, defs)
         gaux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(period_kinds):
             x, aux = run(gp[f"l{j}"], x, None if gcache is None else gcache[f"l{j}"], kind)
@@ -207,10 +214,15 @@ def stack_apply(
     # outputs may not be written in place under autograd)
     gcaches = [None if cache is None else tree_map(lambda a: a[g], cache["stack"])
                for g in range(n_groups)]
-    body = group_apply
+    group_defs = {f"l{j}": block_defs(cfg, kind, cross="cross" in params["stack"][f"l{j}"])
+                  for j, kind in enumerate(period_kinds)}
+
+    def body(gp, x, gcache):
+        return group_apply(gp, x, gcache, group_defs)
+
     if remat:
         def body(gp, x, gcache):
-            return checkpoint(group_apply, gp, x, gcache, use_reentrant=False,
+            return checkpoint(group_apply, gp, x, gcache, group_defs, use_reentrant=False,
                               preserve_rng_state=False)
 
     n_inner = _sqrt_factor(n_groups) if (remat and cache is None) else 1

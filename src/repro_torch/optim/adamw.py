@@ -23,7 +23,12 @@ size; the result is bit for bit the whole-leaf update's.
 
 :func:`opt_state_specs` gives the moments' specs over a mesh: they inherit
 the parameter specs, so the optimizer state is sharded exactly like the
-FSDP weights.
+FSDP weights.  On a mesh the leaves are DTensors and the update runs on
+each rank's shards: the global gradient norm sums every shard (one
+all-reduce of a scalar), an int8 moment's per-row scale is the absmax of
+the global row (an all-reduce of the row maxima where the last dim is
+sharded), and the scale is left replicated over the axes of that dim, as
+its spec says.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = [
     "AdamWConfig",
@@ -86,6 +92,10 @@ class QTensor(NamedTuple):
 
 def _quantize(x: torch.Tensor) -> QTensor:
     scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    if isinstance(x, DTensor):  # the spec of the scale: the last dim unsharded
+        last = x.dim() - 1
+        scale = scale.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard(last) else p for p in x.placements])
     scale = scale.clamp(min=1e-12)
     q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
     return QTensor(q, scale.to(torch.float32))
@@ -153,7 +163,7 @@ def _tree_map(fn, tree):
 def init_opt_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     """Zero moments shaped like ``params`` and step 0."""
     def zeros(p):
-        return _wrap(torch.zeros(p.shape, dtype=torch.float32, device=p.device), cfg.state_dtype)
+        return _wrap(torch.zeros_like(p, dtype=torch.float32), cfg.state_dtype)
 
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
@@ -239,7 +249,7 @@ def _row(m, i: int):
 def _empty_like(m):
     if isinstance(m, QTensor):
         return QTensor(torch.empty_like(m.q), torch.empty_like(m.scale))
-    return torch.empty(m.shape, dtype=torch.float32, device=m.device)
+    return torch.empty_like(m, dtype=torch.float32)
 
 
 def _put(out, i: int, value) -> None:

@@ -17,20 +17,27 @@ tensors with no autograd history, mirroring the JAX package's pytree.
 
 ``param_shardings`` (a tree of
 :class:`~repro_torch.models.params.NamedSharding` mirroring the
-parameters) places the gradients and the accumulation buffer on their
-mesh's device, where the JAX package constrains them to the parameter
-layout.  The mesh must hold one device: the step is then bit for bit the
-step without it; a larger mesh raises ``NotImplementedError``.
+parameters) constrains the gradients and the f32 accumulation buffer to
+the parameters' placements, as the JAX package's does: on a mesh the
+gradients come back ``Partial`` (summed) over ``data``, and the constraint
+is their reduce-scatter to the FSDP shards (ZeRO).  On a mesh the state
+holds DTensors (:func:`~repro_torch.models.params.place`), the batch
+comes from ``make_global_batch(mesh=)`` and the step runs inside a
+:func:`~repro_torch.models.params.sharding_ctx`; microbatch ``i`` holds
+rows ``[i b / n, (i + 1) b / n)`` of the global batch, as the JAX
+package's ``reshape(n, b // n, ...)`` gives it, redistributed over the
+batch's axes.  The metrics come back replicated, as plain tensors.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import wide
 from repro_torch.models.model import Model
-from repro_torch.models.params import place, require_one_device
+from repro_torch.models.params import place, replicate_like, shard
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_update,
@@ -47,15 +54,18 @@ AUX_WEIGHT = 0.01
 def loss_fn(model: Model, params, batch: Dict[str, torch.Tensor], *, remat: bool = False):
     """Mean next-token CE over the batch (+ MoE aux).
 
-    The JAX package takes the target logit as a masked sum over the vocab
-    dim (its vocab dim is sharded over a mesh); on one card a gather gives
-    the same value (one logit plus zeros)."""
+    The target logit is the JAX package's masked sum over the vocab dim,
+    ``where(iota == tgt, logits, 0)`` summed, not a gather: on a mesh the
+    vocab dim is sharded over "model", and the sum reduces each rank's
+    columns with one all-reduce of scalars per token.  It is bit for bit
+    the gather: one logit plus zeros."""
     logits, _, aux = model.forward(params, batch, remat=remat)
     tokens = batch["tokens"]
     logits = wide(logits[:, :-1])
     tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(logits, dim=-1)
-    tgt_logit = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    iota = replicate_like(torch.arange(logits.shape[-1], device=logits.device), logits)
+    tgt_logit = torch.where(iota == tgt[..., None], logits, 0.0).sum(-1)
     ce = torch.mean(lse - tgt_logit)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
@@ -68,14 +78,24 @@ def init_train_state(model: Model, generator: torch.Generator, opt_cfg: AdamWCon
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
 
-def _split_micro(batch: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
+def _split_micro(batch: Dict[str, torch.Tensor], n: int) -> list:
+    """The ``n`` microbatches: rows ``[i b / n, (i + 1) b / n)`` each, the
+    JAX package's ``reshape(n, b // n, ...)``, constrained to the batch's
+    spec (on a mesh: redistributed over its axes)."""
     def split(x):
         b = x.shape[0]
         if b % n:
             raise ValueError(f"a batch of {b} does not split into {n} microbatches")
-        return x.reshape(n, b // n, *x.shape[1:])
+        m = b // n
+        return [shard(x[i * m:(i + 1) * m], "batch", *([None] * (x.dim() - 1)))
+                for i in range(n)]
 
-    return {k: split(v) for k, v in batch.items()}
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(
@@ -90,8 +110,6 @@ def make_train_step(
     """Returns ``train_step(state, batch) -> (state, metrics)``; the
     metrics are tensors on the state's device (reading one syncs)."""
     shardings = None if param_shardings is None else tree_leaves(param_shardings)
-    for s in shardings or ():
-        require_one_device(s.mesh, "make_train_step(param_shardings=)")
 
     def constrain(leaves):
         if shardings is None:
@@ -104,21 +122,20 @@ def make_train_step(
         loss, parts = loss_fn(model, rebuild(live), batch, remat=remat)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}, constrain(grads), rebuild
+        return (_replicated(loss.detach()), {k: _replicated(v.detach()) for k, v in parts.items()},
+                constrain(grads), rebuild)
 
     def train_step(state, batch):
         params = state["params"]
         if n_microbatch == 1:
             loss, parts, grads, rebuild = grads_of(params, batch)
         else:
-            micro = _split_micro(batch, n_microbatch)
             acc = None
             losses, ces = [], []
-            for i in range(n_microbatch):
-                loss, parts, g, rebuild = grads_of(params, {k: v[i] for k, v in micro.items()})
+            for mb in _split_micro(batch, n_microbatch):
+                loss, parts, g, rebuild = grads_of(params, mb)
                 if acc is None:
-                    acc = constrain([torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                                     for p in g])
+                    acc = [torch.zeros_like(p, dtype=acc_dtype) for p in g]
                 for a, gg in zip(acc, g):
                     a.add_(gg.to(acc_dtype) / n_microbatch)
                 del g
@@ -128,7 +145,7 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             parts = {"ce": torch.stack(ces).mean(), "aux": torch.zeros((), device=loss.device)}
         new_params, new_opt, om = adamw_update(params, rebuild(grads), state["opt"], opt_cfg)
-        metrics = {"loss": loss, **parts, **om}
+        metrics = {k: _replicated(v) for k, v in {"loss": loss, **parts, **om}.items()}
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step

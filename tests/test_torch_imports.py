@@ -21,9 +21,11 @@ _FORBIDDEN = re.compile(
 
 
 def _port_files():
-    # chip_smoke.py imports tests/hub_runs.py; scripts/ time the port
+    # chip_smoke.py imports tests/hub_runs.py; scripts/ time the port; the
+    # mesh tests' ranks run the port alone
     files = sorted(PORT.rglob("*.py")) + sorted((ROOT / "scripts").glob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "hub_runs.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "hub_runs.py",
+              ROOT / "tests" / "torch_mesh_worker.py"]  # the mesh tests' ranks
     assert len(files) > 10
     return files
 

@@ -10,20 +10,38 @@
 * The dry run's rules: ``default_microbatch``, ``needs_sp``,
   ``opt_config`` and ``cell_applicable`` over every (arch × shape × mesh)
   at a spec of 16e9 bytes, which gives the JAX package's budgets.
-* ``shard``/``constrain_defs``: identities outside a context and on a mesh
-  of one device, ``NotImplementedError`` on a larger one.
+* ``shard``/``constrain_defs``: identities outside a context and, for a
+  plain tensor, on a mesh of one device; a plain tensor inside a context
+  on a larger mesh raises ``TypeError`` (it was never placed).
 * ``make_train_step(param_shardings=)``, ``make_global_batch(mesh=,
   sharding=)`` and ``Checkpointer.restore(shardings=)`` on the 1x1 CPU
   mesh (a world-1 gloo group in this process) are bit for bit the calls
-  without them, and raise on a mesh of more than one device.
+  without them.
+* The same surfaces on a mesh of 2 ranks: ``tests/torch_mesh_worker.py``
+  (``surfaces``) as 2 processes under gloo on the CPU, joined through a
+  fresh ``file://`` rendezvous, each within ``TIMEOUT_S``; the batch over
+  ``data`` on ``(2, 1)``, the weights over ``model`` on ``(1, 2)``.
+  ``shard``/``constrain_defs`` redistribute a DTensor to its spec; the
+  batch's rows are each rank's and its ``full_tensor()`` the batch without
+  a mesh; the train step agrees with the step without a mesh (loss and
+  grad norm within ``1e-5``, every leaf within ``2 * lr`` a step and
+  ``1e-5`` of the rest); a checkpoint restores onto either mesh bit for
+  bit.  ``tests/test_torch_mesh.py`` holds the 4-rank step against the
+  JAX package's.
 """
 import dataclasses
 import importlib
+import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax  # both frameworks in one process, JAX on the CPU
+import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor
 from jax.sharding import AbstractMesh as JMesh
 
 import repro.models as jmodels
@@ -45,6 +63,9 @@ MESHES = {
 RULES = ("TRAIN_RULES", "TRAIN_RULES_SP", "DECODE_RULES")
 # a device of 16e9 bytes: the budgets of the JAX package's dry run
 SPEC16 = HardwareSpec("test_16e9", 1e12, 1e12, 1e11, 16e9, 1e12)
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).with_name("torch_mesh_worker.py")
+TIMEOUT_S = 180  # per rank process
 
 
 def _meshes(name):
@@ -200,7 +221,33 @@ def test_dryrun_budgets_scale_with_the_card(jdryrun):
     assert not any(tdryrun.needs_sp(get_config(a), shape, tm, H100_SXM) for a in ARCHS)
 
 
-def test_shard_and_constrain_defs_raise_on_more_than_one_device():
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The ``surfaces`` case of ``tests/torch_mesh_worker.py`` on 2 gloo
+    ranks: each rank's results."""
+    out = tmp_path_factory.mktemp("two_ranks")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    case = json.dumps({"kind": "surfaces"})
+    procs = [subprocess.Popen([sys.executable, str(WORKER), case, str(r), "2",
+                               f"file://{out / 'rendezvous'}", str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+             for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=TIMEOUT_S)[0].decode()[-4000:])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0].decode()[-4000:])
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
+    return [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_shard_and_constrain_defs_raise_on_more_than_one_device(two_ranks):
+    """Identities outside a context; inside one, a plain tensor passes on a
+    mesh of one device and raises on a larger one, and a DTensor is
+    redistributed to its spec (2 ranks)."""
     x = torch.ones(4, 8)
     defs = {"w": tparams.ParamDef((4, 8), ("embed", "mlp"))}
     assert tparams.get_sharding_ctx() is None
@@ -212,11 +259,17 @@ def test_shard_and_constrain_defs_raise_on_more_than_one_device():
         assert tparams.shard(x, "batch", None) is x
         assert tparams.constrain_defs({"w": x}, defs)["w"] is x
     with tparams.sharding_ctx(big, tparams.TRAIN_RULES):
-        with pytest.raises(NotImplementedError, match="256 devices"):
+        with pytest.raises(TypeError, match="256 devices"):
             tparams.shard(x, "batch", None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="never placed|place the inputs"):
             tparams.constrain_defs({"w": x}, defs)
     assert tparams.get_sharding_ctx() is None
+    for r in two_ranks:
+        assert bool(r["plain_raises"])
+        # ("batch", "mlp") and ("embed", "mlp") on (1, 2): dim 1 over "model"
+        assert str(r["shard/placements"]) == "(Replicate(), Shard(dim=1))"
+        assert str(r["constrain/placements"]) == "(Replicate(), Shard(dim=1))"
+        assert bool(r["shard/equal"]) and bool(r["constrain/equal"])
 
 
 # --- the sharding arguments on the 1x1 CPU mesh ------------------------------
@@ -256,33 +309,86 @@ def _named(model, mesh):
     return tparams.tree_map(lambda s: tparams.NamedSharding(mesh, s), specs)
 
 
-def test_train_step_param_shardings_bit_for_bit(host_mesh):
+def _full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def test_train_step_param_shardings_bit_for_bit(host_mesh, two_ranks):
     from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
+    from repro_torch.optim.adamw import init_opt_state, tree_leaves
     from repro_torch.train import init_train_state, make_train_step
 
     model = _small_model()
     opt = AdamWConfig(lr_peak=1e-2, warmup_steps=1)
     data = SyntheticLM(DataConfig(vocab=128, seq_len=8, global_batch=4, seed=1))
-    batch = make_global_batch(data, 0, device="cpu")
     outs = []
     for shardings in (None, _named(model, host_mesh)):
         state = init_train_state(model, torch.Generator().manual_seed(0), opt, device="cpu")
+        batch = make_global_batch(data, 0, device="cpu")
+        if shardings is not None:  # the state and the batch on the 1x1 mesh
+            params = tparams.tree_map(tparams.place, state["params"], shardings)
+            state = {"params": params, "opt": init_opt_state(params, opt)}
+            batch = make_global_batch(data, 0, mesh=host_mesh)
         step = make_train_step(model, opt, n_microbatch=2, param_shardings=shardings)
-        for _ in range(2):
-            state, metrics = step(state, batch)
+        with tparams.sharding_ctx(host_mesh, tparams.TRAIN_RULES):
+            for _ in range(2):
+                state, metrics = step(state, batch)
         outs.append((state, metrics))
-    from repro_torch.optim.adamw import tree_leaves
 
     (a, ma), (b, mb) = outs
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        assert torch.equal(x, y)
+        assert torch.equal(x, _full(y))
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
-    big = _meshes("16x16")[1]
-    with pytest.raises(NotImplementedError, match="make_train_step"):
-        make_train_step(model, opt, param_shardings=_named(model, big))
+
+    # 2 ranks: the batch over data, then the weights over model, against
+    # the same 2 steps without a mesh
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": init_opt_state(params, opt)}
+    step = make_train_step(model, opt, n_microbatch=2)
+    want, resolved = [], {}
+    for i in range(2):
+        state, metrics = step(state, make_global_batch(data, i, device="cpu"))
+        want.append({k: float(v) for k, v in metrics.items()})
+        for key, m in _paths(state["opt"]["m"]).items():  # resolved at every step
+            now = (m.abs() >= 1e-4 * m.abs().max()).numpy()
+            resolved[key] = now if key not in resolved else resolved[key] & now
+    lr_sum = sum(m["lr"] for m in want)
+    flat = _paths(state)
+    for tag in ("data", "model"):
+        got = json.loads(str(two_ranks[0][f"step/{tag}/metrics"]))
+        for g, w in zip(got, want):
+            for key in ("loss", "grad_norm", "lr"):
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-5, err_msg=(tag, key))
+        for key, w in flat.items():
+            g, w = two_ranks[0][f"step/{tag}/{key}"], w.numpy()
+            assert g.shape == w.shape and g.dtype == w.dtype, (tag, key)
+            if key.startswith("params/"):
+                # tests/test_torch_mesh.py's resolved-gradient rule: tight
+                # where the gradient was resolved at both steps, within
+                # AdamW's sign step (2 * lr a step) elsewhere
+                err = np.abs(g.astype(np.float64) - w)
+                tight = err <= 1e-5 * np.abs(w) + 1e-5 * np.abs(w).max() + 1e-2 * lr_sum
+                ok = resolved[key[len("params/"):]]
+                assert ok.any() and tight[ok].all(), (tag, key, err[ok].max())
+                assert err.max() <= 2 * lr_sum, (tag, key, err.max())
+            elif key == "opt/step":
+                assert int(g) == int(w)
+            else:  # the moments, within the gradients' tolerance
+                np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                           err_msg=f"{tag} {key}")
 
 
-def test_global_batch_on_the_mesh_bit_for_bit(host_mesh):
+def _paths(tree, prefix=""):
+    """``{"a/b": leaf}`` of a state tree (int8 moments as ``.q``/``.scale``)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _paths(sub, f"{prefix}/{key}" if prefix else key).items()}
+    if isinstance(tree, QTensor):
+        return {f"{prefix}.q": tree.q, f"{prefix}.scale": tree.scale}
+    return {prefix: tree}
+
+
+def test_global_batch_on_the_mesh_bit_for_bit(host_mesh, two_ranks):
     from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
 
     data = SyntheticLM(DataConfig(vocab=128, seq_len=8, global_batch=4, seed=2))
@@ -293,16 +399,20 @@ def test_global_batch_on_the_mesh_bit_for_bit(host_mesh):
         "tokens": tparams.NamedSharding(host_mesh, spec)})
     for got in (on_mesh, sharded):
         assert got.keys() == plain.keys()
-        assert torch.equal(got["tokens"], plain["tokens"])
+        assert isinstance(got["tokens"], DTensor)
+        assert torch.equal(got["tokens"].full_tensor(), plain["tokens"])
+        assert torch.equal(got["tokens"].to_local(), plain["tokens"])
         assert got["tokens"].device == torch.device("cpu")
-    big = _meshes("16x16")[1]
-    with pytest.raises(NotImplementedError):
-        make_global_batch(data, 3, mesh=big)
-    with pytest.raises(NotImplementedError):
-        make_global_batch(data, 3, sharding={"tokens": tparams.NamedSharding(big, spec)})
+    # 2 ranks over "data": rows [0, 2) and [2, 4), the global batch's
+    want = data.batch_at(3)["tokens"]
+    for r in two_ranks:
+        lo = 2 * int(r["coord"][0])
+        for tag in ("mesh", "sharding"):
+            assert np.array_equal(r[f"batch/{tag}/local"], want[lo:lo + 2])
+            assert np.array_equal(r[f"batch/{tag}/full"], plain["tokens"].numpy())
 
 
-def test_checkpoint_restore_with_shardings_bit_for_bit(host_mesh, tmp_path):
+def test_checkpoint_restore_with_shardings_bit_for_bit(host_mesh, tmp_path, two_ranks):
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.optim.adamw import init_opt_state, tree_leaves
 
@@ -331,12 +441,12 @@ def test_checkpoint_restore_with_shardings_bit_for_bit(host_mesh, tmp_path):
                              for t in (leaf if isinstance(leaf, QTensor) else (leaf,))]
         assert len(flat(plain)) == len(flat(state))
         for x, y in zip(flat(plain), flat(sharded)):
-            assert torch.equal(x, y) and x.dtype == y.dtype
-        big = _meshes("16x16")[1]
-        on_big = {**named(specs), "params": tparams.tree_map(
-            lambda s: tparams.NamedSharding(big, s.spec), named(specs)["params"])}
-        with pytest.raises(NotImplementedError, match="restore"):
-            ck.restore(state, shardings=on_big)
+            assert isinstance(y, DTensor)
+            assert torch.equal(x, y.full_tensor()) and x.dtype == y.dtype
+    # 2 ranks: an int8 state restored onto (2, 1) and (1, 2), bit for bit
+    for r in two_ranks:
+        for tag in ("data", "model"):
+            assert int(r[f"restore/{tag}/step"]) == 5 and bool(r[f"restore/{tag}/equal"])
 
 
 def test_placing_on_an_abstract_mesh_is_refused():
