@@ -197,23 +197,31 @@ dryrun):
   directory), none an error, and the ``fleet_stats`` line; the full sweep is ``python -m repro_torch.launch.dryrun --all
   --mesh both``.
 
-* mesh     — (after the build, in a process of its own) OLMo-1B's train step on a
-  ``(2, 2)`` ``("data", "model")`` mesh (``launch.mesh.make_mesh``) of 4 ranks spawned on ``cuda:0`` under
-  gloo (a fresh ``file://`` rendezvous), ``TRAIN_RULES``: FSDP over
-  ``data``, tensor parallelism over ``model``, DTensors behind ``place``,
-  ``shard``, ``constrain_defs``, ``param_shardings`` and
-  ``make_global_batch(mesh=)``.  At full width and depth in float32, 2
-  steps of ``SyntheticLM(vocab=50304, seq_len=512, global_batch=8,
+* mesh     — (first, in a process of its own, started before the build,
+  which runs beside it; its dry runs run while its ranks do) each model of
+  ``MESH_MODELS`` trains on a ``(2, 2)`` ``("data", "model")`` mesh
+  (``launch.mesh.make_mesh``) of 4 ranks spawned on ``cuda:0`` under gloo
+  (a fresh ``file://`` rendezvous), ``TRAIN_RULES``: FSDP over ``data``,
+  tensor parallelism over ``model``, expert parallelism over ``model``
+  (each rank holds E / 2 experts of every MoE layer) and the SSM's inner
+  channels and heads over ``model``, DTensors behind ``place``, ``shard``,
+  ``constrain_defs``, ``param_shardings`` and ``make_global_batch(mesh=)``.
+  The models: OLMo-1B (float32 at 4 of its 16 layers), granite-moe-1b-a400m
+  (all 24 layers) and mamba2-370m (12 of its 48), each at full width.  In
+  float32, 2 steps of ``SyntheticLM(vocab, seq_len=512, global_batch=8,
   seed=0)`` (512, not ``[lm-train]``'s 1024: four ranks share the card
-  beside the phase's process) in 2 microbatches with remat and f32 moments, the
-  weights from seed 0 distributed from rank 0: each step's loss finite and
-  within 1e-3 of the world-1 step, which the phase's process computes
-  first and frees; every parameter's placements those of its ``logical_spec``.  At 2
-  layers in float64, 2 steps: the loss within 1e-9 of world 1's, the grad
-  norm and every leaf within 1e-6 (AdamW takes them in float32 in both
-  packages); the ranks' checkpoint restores on world 1 bit for bit their
-  shards.  Prints ms per step per rank (host clock around a synchronised
-  step), each rank's ``max_memory_allocated()`` beside ``dryrun_cell``'s
+  beside the phase's process) in 2 microbatches with remat and f32
+  moments, the weights from seed 0 distributed from rank 0: each step's
+  loss finite and within 1e-3 of the world-1 step, which the phase's
+  process computes first and frees; every parameter's placements those of
+  its ``logical_spec``.  At 2 layers in float64, 2 steps: the loss within
+  1e-9 of world 1's, the grad norm and every leaf within 1e-6 (AdamW takes
+  them in float32 in both packages); the ranks' checkpoint restores on
+  world 1 bit for bit their shards; granite's top-k routes of the first
+  step, every layer and microbatch, forward and rematerialised, equal
+  world 1's rows (the count that differ printed, gate 0).  Prints ms per
+  step per rank (host clock around a synchronised step), each rank's
+  ``max_memory_allocated()`` over the steps beside ``dryrun_cell``'s
   predicted peak for one device of ``AbstractMesh((2, 2))`` (no gate), the
   collective route (``params.collective_route``) and the collectives of a
   float64 step.  Each rank must exit 0.
@@ -1751,10 +1759,15 @@ def dryrun_phase(spec, smi_line, lm_memory: dict, train_memory: dict) -> None:
 
 # --- the LM on a mesh of ranks -----------------------------------------------
 
-# [mesh]: OLMo-1B's train step on a (2, 2) ("data", "model") mesh of 4 gloo
-# ranks on cuda:0.  The sequence is 512, not [lm-train]'s 1024: four ranks
-# share one card beside the phase's process.
+# [mesh]: each model's train step on a (2, 2) ("data", "model") mesh of 4
+# gloo ranks on cuda:0.  The sequence is 512, not [lm-train]'s 1024: four
+# ranks share one card beside the phase's process.  Each model at full
+# width; float32 at the depth given (None: all of it), float64 at
+# MESH_F64_LAYERS.  OLMo-1B's float32 pass is cut from 16 layers to 4 and
+# mamba2-370m's from 48 to 12 to keep the phase inside chip_smoke.py's
+# time; granite-moe-1b-a400m runs all 24.
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_MODELS = (("olmo-1b", 4), ("granite-moe-1b-a400m", None), ("mamba2-370m", 12))
 MESH_BATCH, MESH_SEQ, MESH_MICRO, MESH_STEPS = 8, 512, 2, 2
 MESH_F64_LAYERS = 2  # the float64 gate's depth (full width)
 # The 2 x 2 step against the world-1 step.  In float64 the loss is held to
@@ -1762,32 +1775,43 @@ MESH_F64_LAYERS = 2  # the float64 gate's depth (full width)
 # the grad norm and the update in float32, so the grad norm and every leaf
 # after 2 steps (relative to the leaf's largest) are held to float32's
 # rounding, 1e-6: a gradient on the wrong shard moves a weight by up to
-# 2 * lr, some 1e-2 of a leaf's largest.  In float32 at full depth, each
-# step's loss within 1e-3.
+# 2 * lr, some 1e-2 of a leaf's largest.  In float32, each step's loss
+# within 1e-3.  An MoE model's float64 routes (the top-k experts of every
+# token in every layer, forward and rematerialised, of the first step) must
+# equal world 1's: none may differ.
 MESH_F64_LOSS_RTOL, MESH_F64_RTOL, MESH_F32_LOSS_RTOL = 1e-9, 1e-6, 1e-3
 MESH_ADAMW = dict(lr_peak=3e-4, warmup_steps=1, decay_steps=MESH_STEPS)
 
 
-def mesh_config(dtype: str, layers=None, smoke: bool = False):
-    """OLMo-1B (``smoke``: its CPU-test config, a try-out of the phase) in
-    ``dtype`` at ``layers`` (default: all)."""
+def mesh_config(arch: str, dtype: str, layers=None, smoke: bool = False):
+    """``arch`` (``smoke``: its CPU-test config, a try-out of the phase) in
+    ``dtype`` at ``layers`` (default: all; never more than the config's)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     cfg = cfg.smoke() if smoke else cfg
-    return dataclasses.replace(cfg, dtype=dtype, n_layers=layers or cfg.n_layers)
+    return dataclasses.replace(cfg, dtype=dtype, n_layers=min(layers or cfg.n_layers,
+                                                              cfg.n_layers))
+
+
+def mesh_data(cfg):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                                  seed=0))
 
 
 def mesh_steps(model, params, data, steps: int, dev, mesh=None, comm_step=None):
     """``steps`` train steps of ``model`` from ``params`` on ``data`` (on
     ``mesh``'s ranks under ``TRAIN_RULES`` with ``param_shardings``, or on
     world 1): (state, metrics per step, host ms per step, collective counts
-    of step ``comm_step``)."""
+    of step ``comm_step``, the MoE routes of the first step)."""
     import contextlib
 
     from repro_torch.data import make_global_batch
+    from repro_torch.models.moe import record_routes
     from repro_torch.models.params import TRAIN_RULES, NamedSharding, sharding_ctx, tree_map
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import init_opt_state
@@ -1800,7 +1824,7 @@ def mesh_steps(model, params, data, steps: int, dev, mesh=None, comm_step=None):
                               param_shardings=named)
     state = {"params": params, "opt": init_opt_state(params, opt)}
     ctx = contextlib.nullcontext() if mesh is None else sharding_ctx(mesh, TRAIN_RULES)
-    metrics, ms, counts = [], [], {}
+    metrics, ms, counts, routes = [], [], {}, []
     with ctx:
         for i in range(steps):
             batch = (make_global_batch(data, i, dev) if mesh is None
@@ -1812,28 +1836,29 @@ def mesh_steps(model, params, data, steps: int, dev, mesh=None, comm_step=None):
                 comm = CommDebugMode()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with comm:
+            with comm, (record_routes() if i == 0 else contextlib.nullcontext()) as got:
                 state, m = step_fn(state, batch)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(v) for k, v in m.items()})
             if i == comm_step:
                 counts = {str(op): n for op, n in comm.get_comm_counts().items()}
-    return state, metrics, ms, counts
+            if i == 0:
+                routes = [r.cpu() for r in got]
+    return state, metrics, ms, counts, routes
 
 
-def mesh_rank(rank: int, world: int, init: str, ckpt: str, out: str, smoke: bool) -> None:
-    """One rank of ``[mesh]`` on ``cuda:0``: the full-depth float32 steps,
-    then the float64 steps at 2 layers and their checkpoint; writes its
-    figures to ``out`` (JSON).  No failure is caught: a rank that raises
-    exits non-zero."""
+def mesh_rank(rank: int, world: int, init: str, tmp: str, archs, smoke: bool) -> None:
+    """One rank of ``[mesh]`` on ``cuda:0``: for each model, the float32
+    steps, then the float64 steps at 2 layers, their checkpoint and (MoE)
+    their routes; writes its figures to ``tmp/rank<rank>.json``.  No failure
+    is caught: a rank that raises exits non-zero."""
     import hashlib
 
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.models.params import (
@@ -1853,9 +1878,6 @@ def mesh_rank(rank: int, world: int, init: str, ckpt: str, out: str, smoke: bool
     try:
         mesh = make_mesh(MESH_SHAPE, MESH_AXES, "cuda")
         res = {"rank": rank, "coord": mesh.get_coordinate(), "route": collective_route(mesh)}
-        cfg32 = mesh_config("float32", smoke=smoke)
-        data = SyntheticLM(DataConfig(vocab=cfg32.vocab, seq_len=MESH_SEQ,
-                                      global_batch=MESH_BATCH, seed=0))
 
         def placed(model):
             # every rank draws the same weights; rank 0's are scattered
@@ -1863,38 +1885,51 @@ def mesh_rank(rank: int, world: int, init: str, ckpt: str, out: str, smoke: bool
             named = tree_map(lambda s: NamedSharding(mesh, s), model.specs(TRAIN_RULES, mesh))
             return tree_map(place, full, named)
 
-        # --- full depth, float32 -----------------------------------------
-        model = build_model(cfg32)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        state, metrics, ms, _ = mesh_steps(model, placed(model), data, MESH_STEPS, dev, mesh)
-        res.update(f32_metrics=metrics, f32_ms=ms, peak=torch.cuda.max_memory_allocated(),
-                   base=base)
-        bad = [str(leaf.placements) for leaf, d in zip(tree_leaves(state["params"]),
-                                                       tree_leaves(model.defs))
-               if leaf.placements != placements(logical_spec(d.shape, d.logical, TRAIN_RULES,
-                                                             mesh), mesh)]
-        res["placement_mismatches"] = bad
-        res["n_leaves"] = len(tree_leaves(model.defs))
-        del state
-        torch.cuda.empty_cache()
+        for arch, layers in archs:
+            out = res[arch] = {}
+            # --- float32 -------------------------------------------------
+            cfg32 = mesh_config(arch, "float32", layers, smoke)
+            model = build_model(cfg32)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            params = placed(model)
+            torch.cuda.reset_peak_memory_stats()  # the steps' peak, not the weights' draw
+            state, metrics, ms, _, _ = mesh_steps(model, params, mesh_data(cfg32), MESH_STEPS,
+                                                  dev, mesh)
+            out.update(f32_metrics=metrics, f32_ms=ms, peak=torch.cuda.max_memory_allocated(),
+                       base=base)
+            out["placement_mismatches"] = [
+                str(leaf.placements) for leaf, d in zip(tree_leaves(state["params"]),
+                                                        tree_leaves(model.defs))
+                if leaf.placements != placements(logical_spec(d.shape, d.logical, TRAIN_RULES,
+                                                              mesh), mesh)]
+            out["n_leaves"] = len(tree_leaves(model.defs))
+            del state, params
+            torch.cuda.empty_cache()
 
-        # --- 2 layers, float64, and the checkpoint -----------------------
-        model = build_model(mesh_config("float64", MESH_F64_LAYERS, smoke))
-        state, metrics, ms, counts = mesh_steps(model, placed(model), data, MESH_STEPS, dev,
-                                                mesh, comm_step=MESH_STEPS - 1)
-        res.update(f64_metrics=metrics, f64_ms=ms, comm_counts=counts)
-        t0 = time.perf_counter()
-        Checkpointer(ckpt).save(MESH_STEPS, state, blocking=True)
-        res["save_s"] = time.perf_counter() - t0
-        res["local_sha256"] = [
-            [str(leaf.placements) if isinstance(leaf, DTensor) else "()",
-             hashlib.sha256((leaf.to_local() if isinstance(leaf, DTensor) else leaf)
-                            .contiguous().cpu().numpy().tobytes()).hexdigest()]
-            for leaf in tree_leaves(state)]
+            # --- 2 layers, float64, the checkpoint and the routes --------
+            model = build_model(mesh_config(arch, "float64", MESH_F64_LAYERS, smoke))
+            state, metrics, ms, counts, routes = mesh_steps(
+                model, placed(model), mesh_data(cfg32), MESH_STEPS, dev, mesh,
+                comm_step=MESH_STEPS - 1)
+            out.update(f64_metrics=metrics, f64_ms=ms, comm_counts=counts)
+            if routes:
+                routes_path = f"{tmp}/{arch}_routes{rank}.pt"
+                torch.save(routes, routes_path)
+                out["routes"] = routes_path
+            t0 = time.perf_counter()
+            Checkpointer(f"{tmp}/{arch}_ckpt").save(MESH_STEPS, state, blocking=True)
+            out["save_s"] = time.perf_counter() - t0
+            out["local_sha256"] = [
+                [str(leaf.placements) if isinstance(leaf, DTensor) else "()",
+                 hashlib.sha256((leaf.to_local() if isinstance(leaf, DTensor) else leaf)
+                                .contiguous().cpu().numpy().tobytes()).hexdigest()]
+                for leaf in tree_leaves(state)]
+            del state
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    with open(out, "w") as f:
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
         json.dump(res, f)
 
 
@@ -1911,73 +1946,91 @@ def local_shard(full: torch.Tensor, spec_placements: str, coord, shape) -> torch
     return out
 
 
-def mesh_phase(dev, spec, smi_line, *, smoke: bool = False, after=None) -> None:
-    """OLMo-1B's train step on a 2 x 2 mesh of gloo ranks on ``cuda:0``
-    (see the module docstring, phase ``mesh``); ``smoke`` runs it on the
-    CPU tests' config, a try-out (``scripts/mesh_phase.py --smoke``).
-    ``after(stage)`` (if given) is called after the world-1 references, the
-    dry run and the ranks (``scripts/mesh_host_probe.py``)."""
+def leaf_paths(tree, prefix=""):
+    """The paths of a tree's leaves in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def mesh_world1(arch: str, layers, dev, smoke: bool):
+    """The world-1 references of one model, computed on ``dev`` and freed:
+    the float32 steps' metrics and ms; the float64 steps' metrics, final
+    state (on the host) and first-step routes."""
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_flatten
+
+    def run(cfg):
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        return mesh_steps(model, params, mesh_data(cfg), MESH_STEPS, dev)
+
+    _, ref32, ms32, _, _ = run(mesh_config(arch, "float32", layers, smoke))
+    state64, ref64, _, _, routes = run(mesh_config(arch, "float64", MESH_F64_LAYERS, smoke))
+    leaves, rebuild = tree_flatten(state64)
+    tree64 = rebuild([t.cpu() for t in leaves])
+    del state64, leaves
+    torch.cuda.empty_cache()
+    return dict(ref32=ref32, ms32=ms32, ref64=ref64, tree64=tree64, routes=routes)
+
+
+def mesh_phase(dev, spec, smi_line, *, smoke: bool = False, after=None, archs=None) -> None:
+    """Each model's train step on a 2 x 2 mesh of gloo ranks on ``cuda:0``
+    (see the module docstring, phase ``mesh``); ``smoke`` runs the CPU
+    tests' configs, a try-out (``scripts/mesh_phase.py --smoke``), and
+    ``archs`` a subset of ``MESH_MODELS`` (``--arch``).  ``after(stage)``
+    (if given) is called after the world-1 references, the dry runs (which
+    run while the ranks do) and the ranks (``scripts/mesh_host_probe.py``)."""
     import hashlib
     import multiprocessing
 
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import dryrun
-    from repro_torch.models import build_model
     from repro_torch.models.params import AbstractMesh
     from repro_torch.optim import AdamWConfig
-    from repro_torch.optim.adamw import tree_flatten, tree_leaves
+    from repro_torch.optim.adamw import tree_leaves
 
     t_phase = time.perf_counter()
-    cfg32 = mesh_config("float32", smoke=smoke)
-    data = SyntheticLM(DataConfig(vocab=cfg32.vocab, seq_len=MESH_SEQ,
-                                  global_batch=MESH_BATCH, seed=0))
+    models = [(a, d) for a, d in MESH_MODELS if archs is None or a in archs]
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products, here and in the ranks
 
     # --- world 1: the references, computed first and freed -----------------
-    def world1(cfg):
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
-        return mesh_steps(model, params, data, MESH_STEPS, dev)
-
-    t0 = time.perf_counter()
-    _, ref32, ref32_ms, _ = world1(cfg32)
-    state64, ref64, _, _ = world1(mesh_config("float64", MESH_F64_LAYERS, smoke))
-    leaves, rebuild = tree_flatten(state64)
-    ref64_tree = rebuild([t.cpu() for t in leaves])
-    ref64_state = tree_leaves(ref64_tree)
-    del state64, leaves
-    torch.cuda.empty_cache()
+    refs = {}
+    for arch, layers in models:
+        t0 = time.perf_counter()
+        r = refs[arch] = mesh_world1(arch, layers, dev, smoke)
+        log(f"[mesh] {arch} world 1 references in {time.perf_counter() - t0:.1f} s: float32 at "
+            f"{mesh_config(arch, 'float32', layers, smoke).n_layers} layers, step ms "
+            f"{[round(x, 1) for x in r['ms32']]}, losses {[m['loss'] for m in r['ref32']]}; "
+            f"float64 at {MESH_F64_LAYERS} layers, losses {[m['loss'] for m in r['ref64']]}, "
+            f"grad norms {[m['grad_norm'] for m in r['ref64']]}")
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    log(f"[mesh] world 1 references in {time.perf_counter() - t0:.1f} s: float32 at "
-        f"{cfg32.n_layers} layers, step ms {[round(x, 1) for x in ref32_ms]}, losses "
-        f"{[r['loss'] for r in ref32]}; float64 at {MESH_F64_LAYERS} layers, losses "
-        f"{[r['loss'] for r in ref64]}, grad norms {[r['grad_norm'] for r in ref64]}")
     after = after or (lambda stage: None)
     after("world-1 references")
 
-    # --- the dry run's prediction for one device of the 2 x 2 mesh ---------
-    shape = ShapeConfig("mesh_train", MESH_SEQ, MESH_BATCH, "train")
-    rec = dryrun.dryrun_cell(cfg32, shape, AbstractMesh(MESH_SHAPE, MESH_AXES), hw=spec,
-                             device="cuda", roofline=False, n_micro=MESH_MICRO,
-                             ocfg=AdamWConfig(**MESH_ADAMW))
-    check(rec["status"] == "ok", f"[mesh] dry run: {rec}")
-    predicted = rec["memory"]["peak_estimate_bytes"]
-    after("dry run")
-
-    # --- the ranks ----------------------------------------------------------
+    # --- the ranks, and meanwhile (this process waits on them) the dry
+    # run's prediction for one device of the 2 x 2 mesh ---------------------
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     with tempfile.TemporaryDirectory() as tmp:
         ctx = multiprocessing.get_context("spawn")
-        paths = [f"{tmp}/rank{r}.json" for r in range(world)]
-        procs = [ctx.Process(target=mesh_rank, args=(r, world, f"file://{tmp}/rendezvous",
-                                                     f"{tmp}/ckpt", paths[r], smoke))
+        procs = [ctx.Process(target=mesh_rank, args=(r, world, f"file://{tmp}/rendezvous", tmp,
+                                                     models, smoke))
                  for r in range(world)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
+        predicted = {}
+        shape = ShapeConfig("mesh_train", MESH_SEQ, MESH_BATCH, "train")
+        for arch, layers in models:
+            rec = dryrun.dryrun_cell(mesh_config(arch, "float32", layers, smoke), shape,
+                                     AbstractMesh(MESH_SHAPE, MESH_AXES), hw=spec,
+                                     device="cuda", roofline=False, n_micro=MESH_MICRO,
+                                     ocfg=AdamWConfig(**MESH_ADAMW))
+            check(rec["status"] == "ok", f"[mesh] {arch} dry run: {rec}")
+            predicted[arch] = rec["memory"]["peak_estimate_bytes"]
+        after("dry run")
         for p in procs:
             p.join(timeout=900)
         ranks_s = time.perf_counter() - t0
@@ -1987,70 +2040,101 @@ def mesh_phase(dev, spec, smi_line, *, smoke: bool = False, after=None) -> None:
                 p.join()
             check(p.exitcode == 0, f"[mesh] rank {r} exited with {p.exitcode}")
         ranks = []
-        for path in paths:
-            with open(path) as f:
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
                 ranks.append(json.load(f))
-        restored, step = Checkpointer(f"{tmp}/ckpt").restore(ref64_tree)
-        restored = tree_leaves(restored)
+        restored, routes = {}, {}
+        for arch, _ in models:
+            tree, step = Checkpointer(f"{tmp}/{arch}_ckpt").restore(refs[arch]["tree64"])
+            check(step == MESH_STEPS, f"[mesh] {arch}: the checkpoint's step {step}")
+            restored[arch] = tree_leaves(tree)
+            routes[arch] = [torch.load(r[arch]["routes"]) if "routes" in r[arch] else []
+                            for r in ranks]
     after("ranks")
 
-    # --- gates ---------------------------------------------------------------
+    # --- gates and what it prints, model by model ---------------------------
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    for r in ranks:
-        tag = f"[mesh] rank {r['rank']} at {r['coord']}"
-        check(not r["placement_mismatches"], f"{tag}: leaves off their logical_spec: "
-              f"{r['placement_mismatches']}")
-        for i, (got, want) in enumerate(zip(r["f32_metrics"], ref32)):
-            check(np.isfinite(got["loss"]) and rel(got["loss"], want["loss"]) <= MESH_F32_LOSS_RTOL,
-                  f"{tag}: float32 step {i} loss {got['loss']} vs world 1 {want['loss']}")
-        for i, (got, want) in enumerate(zip(r["f64_metrics"], ref64)):
-            for key, tol in (("loss", MESH_F64_LOSS_RTOL), ("grad_norm", MESH_F64_RTOL)):
-                check(rel(got[key], want[key]) <= tol,
-                      f"{tag}: float64 step {i} {key} {got[key]!r} vs world 1 {want[key]!r}")
-    leaf_err = max(((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
-                   for a, b in zip(restored, ref64_state))
-    check(step == MESH_STEPS and leaf_err <= MESH_F64_RTOL,
-          f"[mesh] float64 leaves after {MESH_STEPS} steps lie {leaf_err:.3e} (relative to each "
-          f"leaf's largest) from world 1's")
-    for r in ranks:
-        for leaf, (pl, digest) in zip(restored, r["local_sha256"]):
-            got = hashlib.sha256(local_shard(leaf, pl, r["coord"], MESH_SHAPE).contiguous()
-                                 .numpy().tobytes()).hexdigest()
-            check(got == digest, f"[mesh] rank {r['rank']}: a leaf restored on world 1 differs "
-                  f"from its shard on the mesh ({pl})")
-
-    # --- what it prints ------------------------------------------------------
-    log(f"[mesh] {LM_ARCH} ({cfg32.n_layers} layers, d_model {cfg32.d_model}, {cfg32.n_heads} "
-        f"heads, d_ff {cfg32.d_ff}, vocab {cfg32.vocab} padded to {cfg32.padded_vocab}, float32) "
-        f"on a {MESH_SHAPE} {MESH_AXES} mesh of {world} gloo ranks on cuda:0, TRAIN_RULES, "
-        f"{MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ} in {MESH_MICRO} microbatches, remat, "
-        f"AdamW f32 moments, on {smi_line}; the ranks ran in {ranks_s:.1f} s")
-    log(f"[mesh] collective route: all-gather (Shard -> Replicate) by {ranks[0]['route']}; "
-        f"reduce-scatter (Partial -> Shard), all-reduce (Partial -> Replicate) and all-to-all "
-        f"by the functional collectives; per rank in float64 step {MESH_STEPS}: "
-        f"{ranks[0]['comm_counts']}")
-    for r in ranks:
-        ratio = predicted / (r["peak"] - r["base"])
-        log(f"[mesh] rank {r['rank']} at {r['coord']}: float32 step ms "
-            f"{[round(x, 1) for x in r['f32_ms']]}, losses {[m['loss'] for m in r['f32_metrics']]}"
-            f" (world 1 {[m['loss'] for m in ref32]}); max_memory_allocated {r['peak']} B "
-            f"({r['peak'] / 2**30:.3f} GiB; {r['base']} B before) beside the dry run's "
-            f"predicted peak for one device of the 2 x 2 mesh {predicted} B "
-            f"({predicted / 2**30:.3f} GiB): predicted / measured {ratio:.4f}; float64 step ms "
-            f"{[round(x, 1) for x in r['f64_ms']]}, checkpoint save {r['save_s']:.1f} s")
-    worst = {k: max(rel(g[k], w[k]) for r in ranks for g, w in zip(r["f64_metrics"], ref64))
-             for k in ("loss", "grad_norm")}
-    log(f"[mesh] float64 at {MESH_F64_LAYERS} layers: losses within {worst['loss']:.3e} of "
-        f"world 1's (gate {MESH_F64_LOSS_RTOL}), grad norms (float32, AdamW's) within "
-        f"{worst['grad_norm']:.3e} (gate {MESH_F64_RTOL}), every leaf after {MESH_STEPS} steps "
-        f"within {leaf_err:.3e} of its largest (gate {MESH_F64_RTOL}); {ranks[0]['n_leaves']} "
-        f"parameter leaves on their "
-        f"logical_spec on every rank; the ranks' checkpoint restores on world 1 bit for bit "
-        f"their shards ({len(restored)} leaves); float32 losses within {MESH_F32_LOSS_RTOL} of "
-        f"world 1; each rank exited 0")
-    log(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
+    log(f"[mesh] on a {MESH_SHAPE} {MESH_AXES} mesh of {world} gloo ranks on cuda:0, "
+        f"TRAIN_RULES, {MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ} in {MESH_MICRO} "
+        f"microbatches, remat, AdamW f32 moments, on {smi_line}; the ranks ran in "
+        f"{ranks_s:.1f} s; collective route: all-gather (Shard -> Replicate) by "
+        f"{ranks[0]['route']}; reduce-scatter (Partial -> Shard), all-reduce (Partial -> "
+        f"Replicate) and all-to-all by the functional collectives")
+    for arch, layers in models:
+        ref, got = refs[arch], [r[arch] for r in ranks]
+        cfg32 = mesh_config(arch, "float32", layers, smoke)
+        for r, g in zip(ranks, got):
+            tag = f"[mesh] {arch} rank {r['rank']} at {r['coord']}"
+            check(not g["placement_mismatches"], f"{tag}: leaves off their logical_spec: "
+                  f"{g['placement_mismatches']}")
+            for i, (m, w) in enumerate(zip(g["f32_metrics"], ref["ref32"])):
+                check(np.isfinite(m["loss"]) and rel(m["loss"], w["loss"]) <= MESH_F32_LOSS_RTOL,
+                      f"{tag}: float32 step {i} loss {m['loss']} vs world 1 {w['loss']}")
+            for i, (m, w) in enumerate(zip(g["f64_metrics"], ref["ref64"])):
+                for key, tol in (("loss", MESH_F64_LOSS_RTOL), ("grad_norm", MESH_F64_RTOL)):
+                    check(rel(m[key], w[key]) <= tol,
+                          f"{tag}: float64 step {i} {key} {m[key]!r} vs world 1 {w[key]!r}")
+        errs = [((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+                for a, b in zip(restored[arch], tree_leaves(ref["tree64"]))]
+        leaf_err = max(errs)
+        check(leaf_err <= MESH_F64_RTOL,
+              f"[mesh] {arch}: float64 leaves after {MESH_STEPS} steps lie {leaf_err:.3e} "
+              f"(relative to each leaf's largest) from world 1's, worst "
+              f"{leaf_paths(ref['tree64'])[errs.index(leaf_err)]}")
+        for r, g in zip(ranks, got):
+            for leaf, (pl, digest) in zip(restored[arch], g["local_sha256"]):
+                sha = hashlib.sha256(local_shard(leaf, pl, r["coord"], MESH_SHAPE).contiguous()
+                                     .numpy().tobytes()).hexdigest()
+                check(sha == digest, f"[mesh] {arch} rank {r['rank']}: a leaf restored on "
+                      f"world 1 differs from its shard on the mesh ({pl})")
+        routes_line = ""
+        if ref["routes"]:
+            # microbatch i's rows [i b/n, (i+1) b/n) split over "data": a
+            # rank's are the slice of its data coordinate
+            n_diff = n_all = 0
+            for r, rank_routes in zip(ranks, routes[arch]):
+                check(len(rank_routes) == len(ref["routes"]),
+                      f"[mesh] {arch} rank {r['rank']}: {len(rank_routes)} routed layers' calls "
+                      f"against world 1's {len(ref['routes'])}")
+                for mine, full in zip(rank_routes, ref["routes"]):
+                    rows = mine.shape[0]
+                    lo = r["coord"][0] * rows
+                    n_diff += int((mine != full[lo:lo + rows]).sum())
+                    n_all += mine.numel()
+            check(n_diff == 0, f"[mesh] {arch}: {n_diff} of {n_all} float64 top-k indices "
+                  f"differ from world 1's")
+            routes_line = (f"; float64 top-k indices (first step, {len(ref['routes'])} routed "
+                           f"layer calls, forward and remat) differing from world 1's: {n_diff} "
+                           f"of {n_all}")
+        depth = mesh_config(arch, "float32", None, smoke).n_layers
+        log(f"[mesh] {arch} ({cfg32.n_layers} of {depth} layers, d_model "
+            f"{cfg32.d_model}, vocab {cfg32.vocab} padded to {cfg32.padded_vocab}, float32); "
+            f"per rank in float64 step {MESH_STEPS}: {got[0]['comm_counts']}")
+        for r, g in zip(ranks, got):
+            ratio = predicted[arch] / (g["peak"] - g["base"])
+            log(f"[mesh] {arch} rank {r['rank']} at {r['coord']}: float32 step ms "
+                f"{[round(x, 1) for x in g['f32_ms']]}, losses "
+                f"{[m['loss'] for m in g['f32_metrics']]} (world 1 "
+                f"{[m['loss'] for m in ref['ref32']]}); max_memory_allocated {g['peak']} B "
+                f"({g['peak'] / 2**30:.3f} GiB; {g['base']} B before) beside the dry run's "
+                f"predicted peak for one device of the 2 x 2 mesh {predicted[arch]} B "
+                f"({predicted[arch] / 2**30:.3f} GiB): predicted / measured {ratio:.4f}; "
+                f"float64 step ms {[round(x, 1) for x in g['f64_ms']]}, checkpoint save "
+                f"{g['save_s']:.1f} s")
+        worst = {k: max(rel(m[k], w[k]) for g in got for m, w in zip(g["f64_metrics"],
+                                                                     ref["ref64"]))
+                 for k in ("loss", "grad_norm")}
+        log(f"[mesh] {arch} float64 at {MESH_F64_LAYERS} layers: losses within "
+            f"{worst['loss']:.3e} of world 1's (gate {MESH_F64_LOSS_RTOL}), grad norms (float32, "
+            f"AdamW's) within {worst['grad_norm']:.3e} (gate {MESH_F64_RTOL}), every leaf after "
+            f"{MESH_STEPS} steps within {leaf_err:.3e} of its largest (gate {MESH_F64_RTOL}); "
+            f"{got[0]['n_leaves']} parameter leaves on their logical_spec on every rank; the "
+            f"ranks' checkpoint restores on world 1 bit for bit their shards "
+            f"({len(restored[arch])} leaves); float32 losses within {MESH_F32_LOSS_RTOL} of "
+            f"world 1{routes_line}")
+    log(f"[mesh] each rank exited 0; phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def mesh_child(smi_line: str) -> None:
@@ -2114,25 +2198,27 @@ def main() -> None:
         f"peaks of the {spec.name} (repro_torch.analysis.roofline): {peak_bw / 1e12} TB/s, "
         f"{peak_flops / 1e12} TFLOP/s f32")
 
-    # --- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    log(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "Compiling entry function" in line or "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
-
     # --- mesh: the train step on a 2 x 2 mesh of gloo ranks on cuda:0, run
     # first (spawned after the later phases, its ranks moved their gloo
     # traffic 3x slower: 366 s against 145-174 s alone) and in a process of
     # its own: run in this process, it left the host-bound phases after it
     # slower ([lm-train] 755 against 594-651 ms a step run alone,
-    # scripts/mesh_host_probe.py)
+    # scripts/mesh_host_probe.py).  It needs no kernel: it starts before
+    # the build, which runs beside its world-1 references
     import multiprocessing
 
     child = multiprocessing.get_context("spawn").Process(target=mesh_child, args=(smi_line,))
     child.start()
+
+    # --- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s (beside [mesh])")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
     child.join(timeout=900)
     if child.is_alive():
         child.kill()

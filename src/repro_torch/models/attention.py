@@ -21,20 +21,21 @@ On a mesh q, k and v are DTensors.  Attention is independent per batch
 row and head, so :func:`_attend` constrains them to ``("batch", None,
 "act_heads", None)`` (the batch over ``("pod", "data")``, the heads over
 ``model`` where their count divides it) and each rank runs the dense or
-blockwise attention above on its own rows and heads, as plain tensors;
-the output keeps q's placements.
+blockwise attention above on its own rows and heads, as plain tensors,
+with the kv heads its q heads read (GQA's expansion is local); the output
+keeps q's placements.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.configs.base import ModelConfig
 
 from .layers import rope, wide
-from .params import ParamDef, dtype_of, shard
+from .params import ParamDef, dtype_of, local_view, shard
 
 __all__ = ["attention_defs", "attention_apply", "init_attn_cache", "ATTN_CACHE_LOGICAL"]
 
@@ -140,25 +141,54 @@ def _blockwise_attend(q, k, v, q_pos, k_pos, causal: bool, q_chunk=512, kv_chunk
     return torch.cat(outs, dim=1)
 
 
-def _attend(q, k, v, q_pos, k_pos, causal, k_valid=None):
+def _attend(q, k, v, q_pos, k_pos, causal, k_valid=None, groups=1):
+    """Attention of q over k and v, whose heads serve ``groups`` q heads
+    each (GQA: expanded here)."""
     if isinstance(q, DTensor):
-        return _attend_local(q, k, v, q_pos, k_pos, causal, k_valid)
+        return _attend_local(q, k, v, q_pos, k_pos, causal, k_valid, groups)
+    k, v = _expand_kv(k, groups), _expand_kv(v, groups)
     Sq, Skv = q.shape[1], k.shape[1]
     if Sq * Skv <= _DENSE_LIMIT or Sq == 1:
         return _dense_attend(q, k, v, q_pos, k_pos, causal, k_valid)
     return _blockwise_attend(q, k, v, q_pos, k_pos, causal)
 
 
-def _attend_local(q, k, v, q_pos, k_pos, causal, k_valid=None):
+def _head_offset(t: DTensor) -> int:
+    """The first head (dim 2) of ``t``'s local shard."""
+    mesh, coord, off = t.device_mesh, t.device_mesh.get_coordinate(), 0
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(2):
+            off = off * mesh.size(i) + coord[i]
+    return off * t.to_local().shape[2]
+
+
+def _attend_local(q, k, v, q_pos, k_pos, causal, k_valid=None, groups=1):
     """:func:`_attend` of DTensors: each rank over its own batch rows and
-    heads (the sequence and head dims whole)."""
-    q, k, v = (shard(t, "batch", None, "act_heads", None) for t in (q, k, v))
+    q heads (the sequence and head dims whole), with the kv heads they
+    read.  q is constrained to ``("batch", None, "act_heads", None)``, and
+    so are k and v where their head count divides as q's does; where it
+    does not (2 kv heads on a ``model`` axis of 4) they stay replicated
+    over ``model`` and each rank reads its q heads' kv heads, their
+    gradient a part over ``model`` of the rank's q heads."""
+    q = shard(q, "batch", None, "act_heads", None)
+    k, v = (shard(t, "batch", None, "act_heads", None) for t in (k, v))
     for t in (q, k, v):
-        if t.placements != q.placements or not all(
-                p.is_replicate() or p.is_shard(0) or p.is_shard(2) for p in t.placements):
+        if not all(p.is_replicate() or p.is_shard(0) or p.is_shard(2) for p in t.placements):
             raise ValueError(f"attention over DTensors sharded as {t.placements} (q: "
                              f"{q.placements}); run it inside a sharding_ctx")
-    out = _attend(q.to_local(), k.to_local(), v.to_local(), q_pos, k_pos, causal, k_valid)
+    grad = [Partial() if (pq.is_shard(2) and pk.is_replicate()) else pk
+            for pq, pk in zip(q.placements, k.placements)]
+    if any(pq != pk for pq, pk in zip(q.placements, k.placements)
+           if not (pq.is_shard(2) and pk.is_replicate())):
+        raise ValueError(f"attention: q placed as {q.placements}, k and v as {k.placements}")
+    k_l, v_l = (local_view(t, t.placements, grad) for t in (k, v))
+    q_l = q.to_local()
+    # the rank's kv heads that its q heads [h0, h0 + n) read, expanded
+    h0, n, k0 = _head_offset(q), q_l.shape[2], _head_offset(k)
+    lo, hi = h0 // groups - k0, (h0 + n - 1) // groups + 1 - k0
+    skip = h0 % groups
+    k_l, v_l = (_expand_kv(t[:, :, lo:hi], groups)[:, :, skip:skip + n] for t in (k_l, v_l))
+    out = _attend(q_l, k_l, v_l, q_pos, k_pos, causal, k_valid)
     return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
 
 
@@ -226,9 +256,8 @@ def _gqa(p, x, cfg: ModelConfig, pos0: int, cache, kv_x, causal, is_cross=False)
                 k_valid = k_pos <= pos0
             # prefill: attend over the fresh keys only
 
-    kf = _expand_kv(k.to(q.dtype), G)
-    vf = _expand_kv(v.to(q.dtype), G)
-    out = _attend(q, kf, vf, q_pos, k_pos, causal and not is_cross, k_valid)
+    out = _attend(q, k.to(q.dtype), v.to(q.dtype), q_pos, k_pos, causal and not is_cross,
+                  k_valid, G)
     y = _unheads(out, p["wo"])
     return y, cache
 

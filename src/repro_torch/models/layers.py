@@ -67,9 +67,12 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *, mean_sq=None) -> torch.Tensor:
+    """RMSNorm over the last dim; ``mean_sq(xf)`` (default: the mean of
+    ``xf * xf``) may reduce over ranks holding parts of that dim."""
     xf = wide(x)
-    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True) if mean_sq is None else mean_sq(xf)
+    rms = torch.rsqrt(ms + eps)
     return ((xf * rms) * wide(w)).to(x.dtype)
 
 

@@ -36,6 +36,20 @@ context on a mesh of more than one device a plain tensor raises: a layer
 got an input that was never placed.  The layers make their constant tables
 (rotary angles, masks, iotas) DTensors with :func:`replicate_like`.
 
+Where DTensor has no sharding rule for a layer's ops (the MoE routing's
+sorts and gathers, the SSM's conv and scan), the layer runs on each
+rank's local tensors between :func:`local_view` and :func:`from_parts`.
+Inside such a region a value every rank of a mesh dim computes alike (a
+replicated value) carries a *partial* gradient over that dim (each rank
+the part its own experts, heads or channels add; their sum is the
+gradient), and a value of the rank's own (its rows, experts, channels)
+carries its whole gradient.  :func:`local_view` enters a region with the
+gradient's placements named (``Partial()`` where it is summed over the
+ranks), :func:`psum_local` sums a rank's part over mesh dims (its
+gradient summed too) and :func:`from_parts` leaves it, summing the parts
+into a DTensor (its gradient replicated over the summed dims, whatever
+placement it arrives in).
+
 Collectives go where the mesh's process group carries them.
 :func:`collective_route` is the one place that picks a route: a gloo group
 on the card takes DTensor's all-gather (``Shard -> Replicate``) through
@@ -58,7 +72,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.kernels.ops import resolve_device
 
@@ -89,6 +103,9 @@ __all__ = [
     "get_sharding_ctx",
     "shard",
     "constrain_defs",
+    "local_view",
+    "from_parts",
+    "psum_local",
 ]
 
 
@@ -501,3 +518,66 @@ def constrain_defs(tree: Any, defs_tree: Any) -> Any:
     mesh, rules = ctx
     return tree_map(lambda x, d: _constrain(x, logical_spec(d.shape, d.logical, rules, mesh),
                                             mesh, "constrain_defs"), tree, defs_tree)
+
+
+# ---------------------------------------------------------------------------
+# Local regions: a layer on each rank's local tensors
+# ---------------------------------------------------------------------------
+
+
+def local_view(t: torch.Tensor, want, grad) -> torch.Tensor:
+    """The local tensor of DTensor ``t`` redistributed to the placements
+    ``want``; its gradient is read with the placements ``grad``
+    (``Partial()`` on a mesh dim where each rank holds a part of it)."""
+    return t.redistribute(t.device_mesh, tuple(want)).to_local(grad_placements=tuple(grad))
+
+
+def _no_partial(pl) -> Tuple:
+    return tuple(Replicate() if p.is_partial() else p for p in pl)
+
+
+class _FromParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, local_pl, out_pl):
+        ctx.mesh, ctx.grad_pl = mesh, _no_partial(local_pl)
+        d = DTensor.from_local(t, mesh, local_pl, run_check=False)
+        return d.redistribute(mesh, out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not isinstance(g, DTensor):
+            raise TypeError("from_parts: a plain gradient for a DTensor output")
+        return g.redistribute(ctx.mesh, ctx.grad_pl).to_local(), None, None, None
+
+
+def from_parts(t: torch.Tensor, mesh, local_pl, out_pl) -> torch.Tensor:
+    """A DTensor with placements ``out_pl`` from each rank's local ``t``
+    under ``local_pl`` (``Partial()`` where the ranks' tensors sum to the
+    value).  The gradient of ``t`` is the output's, replicated over the
+    summed dims: each rank's part moves the sum one for one."""
+    return _FromParts.apply(t, mesh, tuple(local_pl), tuple(out_pl))
+
+
+class _PsumLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return _psum(t, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.dims), None, None
+
+
+def _psum(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    pl = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    d = DTensor.from_local(t, mesh, pl, run_check=False)
+    return d.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def psum_local(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``t`` summed over the ranks of the mesh dims ``dims``, locally: the
+    sum of each rank's part, used alike by every rank for its own share of
+    the work, so that its gradient is a part too and is summed the same
+    way."""
+    return _PsumLocal.apply(t, mesh, tuple(dims)) if dims else t

@@ -7,8 +7,12 @@ chunks a loop carries the ``[heads, state, head_dim]`` recurrent state
 
 Layer structure follows Mamba-2: fused input projection into
 (x, z, B, C, dt), a short causal depthwise conv over [x;B;C], SSD, gated
-RMSNorm, output projection.  The decode cache (conv history, state) is
-written in place.
+RMSNorm, output projection.  The conv and the scan run in float32 (in
+float64 in a float64 model, as the attention scores do).  The decode
+cache (conv history, state) is written in place.
+
+On a mesh (a DTensor ``x`` inside a sharding context) the training block
+runs on each rank's rows and inner channels (:func:`_mamba_mesh`).
 """
 from __future__ import annotations
 
@@ -16,11 +20,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import rmsnorm
-from .params import ParamDef, dtype_of
+from .layers import rmsnorm, wide
+from .params import (
+    ParamDef,
+    dtype_of,
+    from_parts,
+    get_sharding_ctx,
+    local_view,
+    psum_local,
+    shard,
+)
 
 __all__ = ["mamba_defs", "mamba_apply", "init_mamba_cache", "ssd_chunked", "MAMBA_CACHE_LOGICAL"]
 
@@ -81,8 +94,8 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if history is None:
         history = xBC.new_zeros(B, K - 1, CH)
     padded = torch.cat([history.to(xBC.dtype), xBC], dim=1)
-    terms = [padded[:, k : k + S, :].float() * w[k].float() for k in range(K)]
-    out = sum(terms[1:], terms[0]) + b.float()
+    terms = [wide(padded[:, k : k + S, :]) * wide(w[k]) for k in range(K)]
+    out = sum(terms[1:], terms[0]) + wide(b)
     new_history = padded[:, -(K - 1):, :] if K > 1 else history
     return F.silu(out).to(xBC.dtype), new_history
 
@@ -96,7 +109,8 @@ def ssd_chunked(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,  # [B, nh, n, hp]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan.  Returns (y [B,S,nh,hp] f32, final_state)."""
+    """Chunked SSD scan.  Returns (y [B,S,nh,hp] f32, f64 for float64
+    inputs; final_state)."""
     B, S, nh, hp = x.shape
     n = Bm.shape[-1]
     Q = min(chunk, S)
@@ -108,10 +122,10 @@ def ssd_chunked(
         Cm = F.pad(Cm, (0, 0, 0, pad))
     Sp = S + pad
     nc = Sp // Q
-    xc = x.reshape(B, nc, Q, nh, hp).float()
-    dtc = dt.reshape(B, nc, Q, nh).float()
-    Bc = Bm.reshape(B, nc, Q, n).float()
-    Cc = Cm.reshape(B, nc, Q, n).float()
+    xc = wide(x.reshape(B, nc, Q, nh, hp))
+    dtc = wide(dt.reshape(B, nc, Q, nh))
+    Bc = wide(Bm.reshape(B, nc, Q, n))
+    Cc = wide(Cm.reshape(B, nc, Q, n))
 
     a = dtc * A  # [B,nc,Q,nh], negative log-decay increments
     a_cs = torch.cumsum(a, dim=2)
@@ -119,8 +133,10 @@ def ssd_chunked(
     # --- intra-chunk (quadratic within Q)
     diff = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]  # [B,nc,Q,Q,nh]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    # exp of the upper triangle may overflow; where() drops it
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp, not after (the JAX package's form): at long
+    # chunks the upper triangle's exp overflows, and the gradient of
+    # where(tri, exp(diff), 0) there is 0 * inf = NaN; the same values
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff, float("-inf")))
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
     M = G[..., None] * L
     y_diag = torch.einsum("bcqkh,bckh,bckhp->bcqhp", M, dtc, xc)
@@ -132,9 +148,9 @@ def ssd_chunked(
 
     # --- inter-chunk recurrence (the JAX package's lax.scan over chunks)
     S_prev = (
-        init_state.float()
+        init_state.to(xc.dtype)
         if init_state is not None
-        else torch.zeros((B, nh, n, hp), dtype=torch.float32, device=x.device)
+        else torch.zeros((B, nh, n, hp), dtype=xc.dtype, device=x.device)
     )
     prevs = []
     for c in range(nc):
@@ -156,15 +172,28 @@ def mamba_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Mamba-2 block.  [B,S,D] -> [B,S,D]; decode when S == 1 and cache.
     Returns ``(y, cache)``: the cache given, written in place."""
+    if isinstance(x, DTensor):
+        if cache is not None:
+            raise ValueError("mamba_apply: a decode cache on a mesh is not supported")
+        return _mamba_mesh(p, x, cfg), None
+    return _mamba_body(p, x, cfg, cache)
+
+
+def _mamba_body(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict],
+                mean_sq=None):
+    """The block on ``p``'s inner channels and heads (all of them on one
+    device; a rank's own on a mesh); ``mean_sq`` reduces the gated norm's
+    squares over ``d_inner`` (default: over the tensor's last dim)."""
     B, S, _ = x.shape
-    d, di, n, hp, nh = _dims(cfg)
-    A = -torch.exp(p["A_log"].float())  # [nh]
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh = p["wx"].shape[1], p["wdt"].shape[1]
+    A = -torch.exp(wide(p["A_log"]))  # [nh]
 
     xi = x @ p["wx"]
     z = x @ p["wz"]
     Bm = x @ p["wB"]
     Cm = x @ p["wC"]
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"].float())
+    dt = F.softplus(wide(x @ p["wdt"]) + wide(p["dt_bias"]))
     xBC = torch.cat([xi, Bm.to(xi.dtype), Cm.to(xi.dtype)], dim=-1)
 
     history = cache["conv"] if cache is not None else None
@@ -176,19 +205,84 @@ def mamba_apply(
         # O(1) recurrent decode step
         dt1 = dt[:, 0]  # [B,nh]
         decay = torch.exp(dt1 * A)  # [B,nh]
-        upd = torch.einsum("bn,bh,bhp->bhnp", Bc[:, 0].float(), dt1, xh[:, 0].float())
+        upd = torch.einsum("bn,bh,bhp->bhnp", wide(Bc[:, 0]), dt1, wide(xh[:, 0]))
         st = cache["state"] * decay[:, :, None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), st)
-        y = y + p["D"].float()[:, None] * xh[:, 0].float()
+        y = torch.einsum("bn,bhnp->bhp", wide(Cc[:, 0]), st)
+        y = y + wide(p["D"])[:, None] * wide(xh[:, 0])
         y = y[:, None]  # [B,1,nh,hp]
     else:
         init_state = cache["state"] if cache is not None else None
         y, st = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, init_state)
-        y = y + p["D"].float()[None, None, :, None] * xh.float()
+        y = y + wide(p["D"])[None, None, :, None] * wide(xh)
     if cache is not None:
         cache["conv"].copy_(new_history)
         cache["state"].copy_(st)
 
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_w"])
+    y = rmsnorm(y * F.silu(z), p["norm_w"], mean_sq=mean_sq)
     return y @ p["wout"], cache
+
+
+# the leaves split over the inner channels / heads, and the dim they split on
+_TP_LEAVES = {"wx": 1, "wz": 1, "wdt": 1, "dt_bias": 0, "A_log": 0, "D": 0, "norm_w": 0,
+              "wout": 0}
+
+
+def _mamba_mesh(p: Dict, x: DTensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`mamba_apply` of a DTensor ``x`` on the active mesh (training).
+
+    Each rank runs the block on its own batch rows, each sequence whole
+    (the conv and the chunked scan run along it: under ``TRAIN_RULES_SP``
+    the sequence is gathered first, as XLA reshards it for the JAX
+    package), and on its own inner channels and heads, those its
+    ``ssm_inner``/``ssm_heads`` leaves hold (the heads must split as the
+    channels do).  ``B`` and ``C`` are computed whole on every rank.  The
+    conv's channels ``[x; B; C]`` are sharded evenly over ``ssm_conv_ch``,
+    which does not line up with ``x``'s: the conv weights are gathered
+    and each rank takes its ``x`` channels and the ``B``/``C`` ones.  The
+    gated RMSNorm reduces over ``d_inner``: its sum of squares is summed
+    over the inner channels' mesh dims.  The output projection's parts are
+    summed over them too."""
+    ctx = get_sharding_ctx()
+    if ctx is None:
+        raise ValueError("mamba_apply of a DTensor runs inside a sharding_ctx")
+    mesh = ctx[0]
+    di, n = cfg.ssm_inner, cfg.ssm_state
+    xr = shard(x, "batch", None, None)  # the rows over the batch's axes, each sequence whole
+    batch = [i for i, pl in enumerate(xr.placements) if pl.is_shard(0)]
+    tp = [i for i, pl in enumerate(p["wx"].placements) if pl.is_shard(1)]
+    for name, dim in _TP_LEAVES.items():
+        got = [i for i, pl in enumerate(p[name].placements) if pl.is_shard(dim)]
+        if got != tp:
+            raise ValueError(f"mamba_apply: {name} sharded over mesh dims {got}, wx's inner "
+                             f"channels over {tp}: the heads must split as the channels do")
+    if len(tp) > 1 or set(tp) & set(batch) or any(
+            not (pl.is_shard(0) or pl.is_replicate()) for pl in xr.placements):
+        raise ValueError(f"mamba_apply: rows placed as {xr.placements}, the inner channels "
+                         f"over mesh dims {tp}")
+    dims = range(mesh.ndim)
+    summed = [Partial() if (i in batch or i in tp) else Replicate() for i in dims]
+    local = {}
+    for name, dim in _TP_LEAVES.items():
+        local[name] = local_view(
+            p[name], [Shard(dim) if i in tp else Replicate() for i in dims],
+            [Shard(dim) if i in tp else Partial() if i in batch else Replicate() for i in dims])
+    for name in ("wB", "wC", "conv_w", "conv_b"):
+        local[name] = local_view(p[name], [Replicate()] * mesh.ndim, summed)
+    lo, hi = 0, di
+    if tp:
+        width = di // mesh.size(tp[0])
+        lo = mesh.get_local_rank(tp[0]) * width
+        hi = lo + width
+    for name in ("conv_w", "conv_b"):  # this rank's x channels, then B and C
+        w = local[name]
+        local[name] = torch.cat([w[..., lo:hi], w[..., di:di + 2 * n]], dim=-1)
+
+    def mean_sq(v):
+        return psum_local(torch.sum(v * v, dim=-1, keepdim=True), mesh, tp) / di
+
+    x_l = local_view(xr, xr.placements, [Partial() if i in tp else pl
+                                          for i, pl in enumerate(xr.placements)])
+    out, _ = _mamba_body(local, x_l, cfg, None, mean_sq)
+    return from_parts(out, mesh, [Partial() if i in tp else pl
+                                  for i, pl in enumerate(xr.placements)], x.placements)

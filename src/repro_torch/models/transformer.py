@@ -22,7 +22,10 @@ outer checkpoint as well (the two-level split: the forward keeps only
 On a mesh (inside a :func:`~.params.sharding_ctx`) each block's output is
 constrained to ``("batch", "seq", "act_embed")`` and each stacked group's
 weights to their defs' specs inside the (rematerialised) body, where the
-JAX package places its ``shard`` and ``constrain_defs``.
+JAX package places its ``shard`` and ``constrain_defs``; the body enters
+the context it was called in, so that its recomputation in the backward
+(another thread on the card) runs under the same mesh and rules.  The aux
+losses are summed as replicated DTensors there.
 
 Decode caches mirror the stack structure: per-layer cache dicts, stacked
 along the same leading group dimension.  Group ``g``'s cache is a view
@@ -31,6 +34,7 @@ stack.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -42,7 +46,16 @@ from repro_torch.configs.base import ModelConfig
 from .attention import ATTN_CACHE_LOGICAL, attention_apply, attention_defs, init_attn_cache
 from .layers import apply_norm, grad_dtype_guard, mlp_apply, mlp_defs, norm_defs
 from .moe import moe_apply, moe_defs
-from .params import constrain_defs, dtype_of, shard, stack_defs, tree_map
+from .params import (
+    constrain_defs,
+    dtype_of,
+    get_sharding_ctx,
+    replicate_like,
+    shard,
+    sharding_ctx,
+    stack_defs,
+    tree_map,
+)
 from .ssm import MAMBA_CACHE_LOGICAL, init_mamba_cache, mamba_apply, mamba_defs
 
 __all__ = [
@@ -109,7 +122,7 @@ def block_apply(
     """Pre-norm residual block.  Returns (x, aux_loss); ``cache`` (this
     block's) is written in place."""
     mixer, ffn = kind
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
     h = apply_norm(p["norm1"], x, cfg)
     if mixer == "attn":
@@ -185,7 +198,7 @@ def stack_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the stack; returns (x, aux_loss) and writes ``cache`` in place."""
     prologue_kinds, period_kinds, n_groups = _pattern(cfg, n_layers)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = replicate_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
     def run(p, x, c, kind):
         return block_apply(p, x, cfg, kind, pos0=pos0, cache=c, enc_out=enc_out, causal=causal)
@@ -194,14 +207,19 @@ def stack_apply(
         x, aux = run(params[f"pro{i}"], x, None if cache is None else cache[f"pro{i}"], kind)
         aux_total = aux_total + aux
 
+    ctx = get_sharding_ctx()
+
     def group_apply(gp, x, gcache, defs=None):
-        # defs: a stacked group's weights pinned to their specs (on a mesh)
-        gp = gp if defs is None else constrain_defs(gp, defs)
-        gaux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for j, kind in enumerate(period_kinds):
-            x, aux = run(gp[f"l{j}"], x, None if gcache is None else gcache[f"l{j}"], kind)
-            gaux = gaux + aux
-        return x, gaux
+        # defs: a stacked group's weights pinned to their specs (on a mesh);
+        # the sharding context re-entered, for a rematerialised forward runs
+        # in the backward's thread (a device's own, on the card)
+        with sharding_ctx(*ctx) if ctx is not None else contextlib.nullcontext():
+            gp = gp if defs is None else constrain_defs(gp, defs)
+            gaux = replicate_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
+            for j, kind in enumerate(period_kinds):
+                x, aux = run(gp[f"l{j}"], x, None if gcache is None else gcache[f"l{j}"], kind)
+                gaux = gaux + aux
+            return x, gaux
 
     if not cfg.scan_layers:
         for g in range(n_groups):

@@ -1,21 +1,27 @@
-"""One rank of a mesh case of ``tests/test_torch_mesh.py``: gloo on the CPU.
+"""One rank of a mesh case of ``tests/test_torch_mesh.py`` and
+``tests/test_torch_mesh_families.py``: gloo on the CPU.
 
     python tests/torch_mesh_worker.py CASE_JSON RANK WORLD INIT_URL OUT_DIR
 
 ``CASE_JSON`` names the mesh (``shape``, ``axes``), the rule set
-(``rules``), the OLMo-1B smoke parameters carried from the JAX package
-(``params``, an ``.npz`` keyed by ``/``-joined tree paths) and the case's
-extras.  The rank places the parameters (``place``), draws the first two
-global batches on the mesh (``make_global_batch(mesh=)`` and
-``sharding=``), takes 2 train steps with 2 microbatches and remat under
-``sharding_ctx`` with ``param_shardings``, and writes what the test
-compares to ``OUT_DIR/rank<RANK>.npz``: its coordinate, its local shard of
-each parameter and of each batch, and (rank 0) the metrics and the full
-tensors of the state after each step.  A ``world1`` case restores the
-``(2, 2)`` case's checkpoint onto the 1x1 mesh of one rank.  A ``surfaces``
-case (2 ranks, for ``tests/test_torch_sharding.py``) drives each sharding
-surface on the meshes ``(2, 1)`` and ``(1, 2)``.  No failure is caught: a
-rank that raises exits non-zero.
+(``rules``), the model (``arch``, default OLMo-1B, and ``overrides`` of
+its smoke config), its parameters carried from the JAX package
+(``params``, an ``.npz`` keyed by ``/``-joined tree paths), the number of
+steps (``steps``, default 2) and the case's extras.  The rank places the
+parameters (``place``), draws the global batches on the mesh
+(``make_global_batch(mesh=)`` and ``sharding=``), takes the train steps
+with 2 microbatches and remat under ``sharding_ctx`` with
+``param_shardings``, and writes what the test compares to
+``OUT_DIR/rank<RANK>.npz``: its coordinate, its local shard of each
+parameter and of each batch, and (rank 0) the metrics and the full tensors
+of the state after each step.  A ``world1`` case restores a ``(2, 2)``
+case's checkpoint onto the 1x1 mesh of one rank.  A ``family`` case adds
+one global batch's loss, aux and MoE routes, a rematerialised backward
+taken outside the sharding context, and the checkpoint restored onto
+``(1, 4)``.  A ``surfaces`` case (2 ranks, for
+``tests/test_torch_sharding.py``) drives each sharding surface on the
+meshes ``(2, 1)`` and ``(1, 2)``.  No failure is caught: a rank that
+raises exits non-zero.
 """
 import dataclasses
 import json
@@ -43,8 +49,14 @@ BATCH, SEQ, MICRO, STEPS = 8, 32, 2, 2
 ADAMW = dict(lr_peak=1e-3, warmup_steps=2, decay_steps=50)
 
 
-def model_and_data():
-    cfg = dataclasses.replace(get_config("olmo-1b").smoke(), vocab=VOCAB)
+def case_model(case):
+    """The model and data of a case: ``arch`` (default OLMo-1B) with
+    ``overrides`` of its smoke config."""
+    return model_and_data(case.get("arch", "olmo-1b"), **case.get("overrides", {}))
+
+
+def model_and_data(arch="olmo-1b", **overrides):
+    cfg = dataclasses.replace(get_config(arch).smoke(), vocab=VOCAB, **overrides)
     return build_model(cfg), SyntheticLM(DataConfig(vocab=VOCAB, seq_len=SEQ,
                                                     global_batch=BATCH, seed=0))
 
@@ -113,7 +125,8 @@ def record(out, tag, state):
 def mesh_case(case, rank, out_dir):
     mesh = make_mesh(tuple(case["shape"]), tuple(case["axes"]), "cpu")
     rules = getattr(tparams, case["rules"])
-    model, data = model_and_data()
+    model, data = case_model(case)
+    steps = case.get("steps", STEPS)
     jparams = nested(dict(np.load(case["params"])), model.defs)
     params = tparams.tree_map(tparams.place, tparams.params_from_arrays(jparams, device="cpu"),
                               shardings(model, rules, mesh))
@@ -121,7 +134,7 @@ def mesh_case(case, rank, out_dir):
     for key, leaf in paths(params).items():
         out[f"local/{key}"] = leaf.to_local().numpy()
         out[f"placements/{key}"] = np.asarray(str(leaf.placements))
-    for i in range(STEPS):
+    for i in range(steps):
         batch = make_global_batch(data, i, mesh=mesh)["tokens"]
         spec = tparams.logical_spec((BATCH, SEQ), ("batch", None), rules, mesh)
         by_spec = make_global_batch(
@@ -132,7 +145,7 @@ def mesh_case(case, rank, out_dir):
         out[f"batch{i}/placements"] = np.asarray(str(batch.placements))
 
     opt = AdamWConfig(**ADAMW)
-    states, metrics = run_steps(model, params, data, mesh, rules, opt)
+    states, metrics = run_steps(model, params, data, mesh, rules, opt, steps)
     for i, st in enumerate(states):
         record(out, f"f32_{i}", st)
     out["f32_metrics"] = np.asarray(json.dumps(metrics))
@@ -143,6 +156,8 @@ def mesh_case(case, rank, out_dir):
 
     if case.get("extra"):
         extras(case, rank, mesh, rules, model, data, params, states, metrics, out, out_dir)
+    if case.get("family"):
+        family_extras(case, mesh, rules, model, data, params, states, out, out_dir)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
 
 
@@ -240,10 +255,68 @@ def extras(case, rank, mesh, rules, model, data, params, states, metrics, out, o
     dist.all_gather_into_tensor = c10d
 
 
+def skewed_tokens(data):
+    """The first global batch with its second half of rows one token
+    repeated: the rows of the two halves route unlike each other, so a
+    product of the halves' means is not the mean of their products."""
+    tokens = torch.from_numpy(data.batch_at(0)["tokens"]).long()
+    tokens[BATCH // 2:] = 7
+    return tokens
+
+
+def family_extras(case, mesh, rules, model, data, params, states, out, out_dir):
+    """A family case's extras: the loss of one global batch
+    (:func:`skewed_tokens`) with its aux and (MoE) the top-k routes of each
+    layer, on this rank's rows; its rematerialised gradients with the
+    backward taken inside and outside the sharding context; the
+    checkpoint saved on this mesh, restored onto ``(1, 4)``."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.train.steps import loss_fn
+
+    spec = tparams.logical_spec((BATCH, SEQ), ("batch", None), rules, mesh)
+    tokens = tparams.place(skewed_tokens(data), tparams.NamedSharding(mesh, spec))
+    with tparams.sharding_ctx(mesh, rules), tmoe.record_routes() as routes:
+        loss, parts = loss_fn(model, params, {"tokens": tokens})
+    out["one/loss"] = np.asarray(float(full(loss)))
+    out["one/aux"] = np.asarray(float(full(parts["aux"])))
+    out["one/routes"] = np.stack([r.numpy() for r in routes]) if routes else np.zeros(0)
+    out["one/rows"] = np.asarray(tokens.to_local().shape[0])
+
+    # the rematerialised forward runs in the backward, which on the card is
+    # another thread, outside the caller's context: a backward taken after
+    # the context has closed gives the same gradients bit for bit
+    leaves, rebuild = tadamw.tree_flatten(params)
+    grads = []
+    for inside in (True, False):
+        live = [p.detach().requires_grad_() for p in leaves]
+        with tparams.sharding_ctx(mesh, rules):
+            loss, _ = loss_fn(model, rebuild(live), {"tokens": tokens}, remat=True)
+            got = torch.autograd.grad(loss, live) if inside else None
+        grads.append(got or torch.autograd.grad(loss, live))
+    out["remat/outside_equal"] = np.asarray(all(
+        torch.equal(full(a), full(b)) for a, b in zip(*grads)))
+
+    opt = AdamWConfig(**ADAMW)
+    ck = Checkpointer(Path(out_dir) / "ck")
+    ck.save(len(states), states[-1], blocking=True)
+    saved = {k: full(v) for k, v in paths(states[-1]).items()}
+    other = make_mesh((1, 4), ("data", "model"), "cpu")
+    got, step = ck.restore(states[-1], shardings=state_shardings(model, rules, other, opt))
+    out["restore/1x4/step"] = np.asarray(step)
+    out["restore/1x4/equal"] = np.asarray(all(
+        torch.equal(full(v), saved[k]) and v.dtype == saved[k].dtype
+        for k, v in paths(got).items()))
+    out["restore/1x4/on_spec"] = np.asarray(all(
+        isinstance(v, DTensor) and v.device_mesh == other
+        and v.placements == tparams.placements(s.spec, other)
+        for v, s in zip(tadamw.tree_leaves(got["params"]),
+                        tadamw.tree_leaves(shardings(model, rules, other)))))
+
+
 def world1_case(case, out_dir):
-    """The ``(2, 2)`` case's checkpoint restored onto the 1x1 mesh."""
+    """A ``(2, 2)`` case's checkpoint restored onto the 1x1 mesh."""
     mesh = make_host_mesh("cpu")
-    model, _ = model_and_data()
+    model, _ = case_model(case)
     rules = getattr(tparams, case["rules"])
     opt = AdamWConfig(**ADAMW)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
