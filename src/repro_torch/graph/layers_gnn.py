@@ -34,6 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
+
 __all__ = [
     "DenseParams",
     "SageParams",
@@ -106,10 +108,12 @@ def gcn_layer(agg: Aggregator, p: DenseParams, x: torch.Tensor, activation=torch
 def gcn_forward(
     agg: Aggregator, params: Sequence[DenseParams], x: torch.Tensor, *, activation=torch.relu
 ) -> torch.Tensor:
-    """Full GCN forward: activation between layers, raw logits out."""
-    for p in params[:-1]:
-        x = gcn_layer(agg, p, x, activation)
-    return gcn_layer(agg, params[-1], x, activation=None)
+    """Full GCN forward: activation between layers, raw logits out (span
+    ``gnn.forward``)."""
+    with obs.span("gnn.forward"):
+        for p in params[:-1]:
+            x = gcn_layer(agg, p, x, activation)
+        return gcn_layer(agg, params[-1], x, activation=None)
 
 
 def sage_layer(agg: Aggregator, p: SageParams, x: torch.Tensor, activation=torch.relu):
@@ -122,10 +126,12 @@ def sage_layer(agg: Aggregator, p: SageParams, x: torch.Tensor, activation=torch
 def sage_forward(
     agg: Aggregator, params: Sequence[SageParams], x: torch.Tensor, *, activation=torch.relu
 ) -> torch.Tensor:
-    """Full GraphSAGE forward: activation between layers, raw logits out."""
-    for p in params[:-1]:
-        x = sage_layer(agg, p, x, activation)
-    return sage_layer(agg, params[-1], x, activation=None)
+    """Full GraphSAGE forward: activation between layers, raw logits out
+    (span ``gnn.forward``)."""
+    with obs.span("gnn.forward"):
+        for p in params[:-1]:
+            x = sage_layer(agg, p, x, activation)
+        return sage_layer(agg, params[-1], x, activation=None)
 
 
 def params_from_arrays(params: Sequence[tuple], kind, device=None) -> list:

@@ -190,40 +190,49 @@ class NodeClassifierTrainer:
         labels,
         mask=None,
     ) -> Tuple[TrainState, Dict[str, float]]:
-        """One train step: loss + grads (backward = transpose SpMM) + AdamW."""
-        x, labels, mask = self._on_device(x, labels, mask)
-        leaves, rebuild = tree_flatten(state.params)
-        leaves = [p.detach().requires_grad_(True) for p in leaves]
-        logits = self._forward(agg, rebuild(leaves), x)
-        loss = softmax_cross_entropy(logits, labels, mask)
-        grads = torch.autograd.grad(loss, leaves)
-        params, opt_state, metrics = adamw_update(
-            rebuild([p.detach() for p in leaves]), rebuild(list(grads)), state.opt_state,
-            self.adamw,
-        )
-        out = {
-            "loss": float(loss.detach()),
-            "accuracy": float(accuracy(logits.detach(), labels, mask)),
-            "grad_norm": float(metrics["grad_norm"]),
-            "lr": float(metrics["lr"]),
-            "step": int(metrics["step"]),
-        }
-        # one always-on flight instant per step (the values are already
-        # host floats); a post-mortem shows training progress around
-        # whatever anomaly triggered the dump
-        obs.get_flight().record(
-            "train.step",
-            model=self.model,
-            step=out["step"],
-            loss=out["loss"],
-            grad_norm=out["grad_norm"],
-        )
-        if obs.enabled():
-            i = out["step"]
-            obs.series("train.loss", model=self.model).append(out["loss"], index=i)
-            obs.series("train.grad_norm", model=self.model).append(out["grad_norm"], index=i)
-            obs.series("train.accuracy", model=self.model).append(out["accuracy"], index=i)
-            obs.counter("train.steps", model=self.model).inc()
+        """One train step: loss + grads (backward = transpose SpMM) + AdamW.
+
+        Spans (profiler ranges while a profiler records): ``train.step``
+        around it all, and inside ``train.forward`` (forward and loss),
+        ``train.backward``, ``train.adamw`` and ``train.host_read``."""
+        with obs.span("train.step"):
+            x, labels, mask = self._on_device(x, labels, mask)
+            leaves, rebuild = tree_flatten(state.params)
+            leaves = [p.detach().requires_grad_(True) for p in leaves]
+            with obs.span("train.forward"):
+                logits = self._forward(agg, rebuild(leaves), x)
+                loss = softmax_cross_entropy(logits, labels, mask)
+            with obs.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            with obs.span("train.adamw"):
+                params, opt_state, metrics = adamw_update(
+                    rebuild([p.detach() for p in leaves]), rebuild(list(grads)),
+                    state.opt_state, self.adamw,
+                )
+            with obs.span("train.host_read"):
+                out = {
+                    "loss": float(loss.detach()),
+                    "accuracy": float(accuracy(logits.detach(), labels, mask)),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "lr": float(metrics["lr"]),
+                    "step": int(metrics["step"]),
+                }
+            # one always-on flight instant per step (the values are already
+            # host floats); a post-mortem shows training progress around
+            # whatever anomaly triggered the dump
+            obs.get_flight().record(
+                "train.step",
+                model=self.model,
+                step=out["step"],
+                loss=out["loss"],
+                grad_norm=out["grad_norm"],
+            )
+            if obs.enabled():
+                i = out["step"]
+                obs.series("train.loss", model=self.model).append(out["loss"], index=i)
+                obs.series("train.grad_norm", model=self.model).append(out["grad_norm"], index=i)
+                obs.series("train.accuracy", model=self.model).append(out["accuracy"], index=i)
+                obs.counter("train.steps", model=self.model).inc()
         return TrainState(params, opt_state), out
 
     def evaluate(self, state: TrainState, agg, x, labels, mask=None) -> Dict[str, float]:

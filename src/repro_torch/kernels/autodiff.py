@@ -46,6 +46,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.tile import HBPTiles, build_tiles, tuned_partition_config
 
@@ -114,11 +115,13 @@ class _SpmmA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pair):
         ctx.pair = pair
-        return pair.apply_A(_f32(x))
+        with obs.span("agg.forward"):
+            return pair.apply_A(_f32(x))
 
     @staticmethod
     def backward(ctx, g):
-        return _SpmmAT.apply(g, ctx.pair), None
+        with obs.span("agg.backward"):
+            return _SpmmAT.apply(g, ctx.pair), None
 
 
 class _SpmmAT(torch.autograd.Function):
@@ -150,7 +153,8 @@ class _LinearJvp(torch.autograd.Function):
 
     @staticmethod
     def forward(x, apply_A, plain_A):
-        return apply_A(_f32(x))
+        with obs.span("agg.forward"):
+            return apply_A(_f32(x))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -215,7 +219,8 @@ class _ArgmaxSpmm(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, passes):
-        return ops.hbp_spmm_argmax(dt, _f32(x), passes=passes)
+        with obs.span("agg.forward"):
+            return ops.hbp_spmm_argmax(dt, _f32(x), passes=passes)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -234,8 +239,9 @@ class _ArgmaxSpmm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        idx, coeff = ctx.saved_tensors
-        return _scatter(g, idx, coeff, ctx.n_cols), None, None
+        with obs.span("agg.backward"):
+            idx, coeff = ctx.saved_tensors
+            return _scatter(g, idx, coeff, ctx.n_cols), None, None
 
 
 def argmax_spmm_diff(

@@ -406,7 +406,8 @@ def hbp_spmv(
             blocked_matrix(x[:, None], dt.col_block),
             n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
         )[..., 0]
-    return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
+    with obs.span("kernels.unpermute"):
+        return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
 
 
 def _spmm_hashed(dt: DeviceTiles, x: torch.Tensor, strategy: str, combine: str) -> torch.Tensor:
@@ -488,7 +489,8 @@ def hbp_spmm(
         # rows with no live entry hold the identity; they aggregate to 0
         # (the convention for isolated graph nodes)
         y_hashed = y_hashed.masked_fill_(torch.isneginf(y_hashed), 0.0)
-    return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
+    with obs.span("kernels.unpermute"):
+        return _ref.unpermute(y_hashed, dt.perm, dt.shape[0])
 
 
 def bucket_k(k: int, buckets: tuple = K_BUCKETS) -> int:
@@ -577,5 +579,6 @@ def hbp_spmm_argmax(
         n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
     )
     y_h = y_h.masked_fill_(torch.isneginf(y_h), 0.0)  # empty rows aggregate to 0
-    return (_ref.unpermute(y_h, dt.perm, n), _ref.unpermute(idx_h, dt.perm, n),
-            _ref.unpermute(coeff_h, dt.perm, n))
+    with obs.span("kernels.unpermute"):
+        return (_ref.unpermute(y_h, dt.perm, n), _ref.unpermute(idx_h, dt.perm, n),
+                _ref.unpermute(coeff_h, dt.perm, n))

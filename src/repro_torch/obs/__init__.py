@@ -11,6 +11,8 @@ turns it on; while disabled, :func:`span`, :func:`counter`,
 no-op object whose methods do nothing — a hot call site pays a module
 attribute read and a falsy check, nothing allocates, nothing locks.
 Call sites that want even that gone guard with ``if obs.enabled():``.
+A span tests one thing more, whether a ``torch.profiler`` records: then
+it is a profiler range named ``repro_torch.<name>`` whatever the flag.
 
 Two kinds of state:
 
@@ -36,6 +38,8 @@ import json
 import os
 from typing import Optional
 
+from torch.autograd import _profiler_enabled
+
 from .metrics import (  # noqa: F401  (re-exported surface)
     Counter,
     Gauge,
@@ -48,7 +52,7 @@ from .metrics import (  # noqa: F401  (re-exported surface)
 )
 from .flight import FlightRecorder, get_flight  # noqa: F401
 from .slo import SLO, SLOEngine, worst_status  # noqa: F401
-from .trace import Span, Tracer, get_tracer  # noqa: F401
+from .trace import ProfilerRange, Span, Tracer, get_tracer  # noqa: F401
 from .requesttrace import (  # noqa: F401
     RequestContext,
     RequestLog,
@@ -139,9 +143,6 @@ class _Noop:
     def annotate(self, **kw):
         return self
 
-    def sync(self, value):
-        return value
-
     def __enter__(self):
         return self
 
@@ -181,8 +182,14 @@ def span(name: str, **args):
         with obs.span("admit.build_tiles", matrix=name) as sp:
             tiles = build(...)
             sp.annotate(tiles=tiles.n_tiles)
+
+    Whenever a ``torch.profiler`` records, the scope is also a profiler
+    range named ``repro_torch.<name>``, obs enabled or not.  Hot-path call
+    sites pass no keyword args, so the disabled path evaluates none.
     """
-    return get_tracer().span(name, **args) if _enabled else NOOP
+    if _enabled:
+        return get_tracer().span(name, **args)
+    return ProfilerRange(name) if _profiler_enabled() else NOOP
 
 
 def flow(name: str, fid: str, phase: str = "s", **args) -> None:

@@ -9,12 +9,17 @@ count at entry) so tests and the JSONL log can assert ordering without a
 trace viewer.
 
 CUDA work is asynchronous: a span that closes right after a kernel
-launch times the *dispatch*, not the compute.  ``Span.sync(value)``
-synchronizes the card when ``value`` holds CUDA tensors, so the caller
-decides, per span, whether the device is drained inside the measurement::
+launch times the *dispatch*, not the compute.  Device time is attributed
+by launch instead: whenever a ``torch.profiler`` records, a span also
+opens a ``record_function`` range named ``repro_torch.<name>``, so the
+profiler's own event list holds it on the device trace's clock, and each
+kernel belongs to the ranges open on the thread that launched it.
 
-    with obs.span("serve.flush", matrix=key) as sp:
-        y = sp.sync(plan.matmat(X))   # compute lands inside the span
+The Chrome export writes ``ts`` in microseconds since the Unix epoch, the
+clock of Kineto's events (``start_ns()``).  Kineto's
+``export_chrome_trace`` writes its ``ts`` relative to the
+``baseTimeNanoseconds`` it records in the same file: add that base (in µs)
+to its events to put both event lists on one timeline.
 
 The event buffer is bounded (default 1M events); past the cap events are
 dropped and counted, never silently lost.
@@ -27,7 +32,13 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "get_tracer"]
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+__all__ = ["PREFIX", "ProfilerRange", "Span", "Tracer", "get_tracer"]
+
+# what the program's profiler ranges are named by: ``repro_torch.<span>``
+PREFIX = "repro_torch."
 
 
 class Tracer:
@@ -35,7 +46,10 @@ class Tracer:
 
     def __init__(self, *, max_events: int = 1_000_000):
         self.max_events = max_events
+        # one reading of both clocks: events are stamped by perf_counter and
+        # exported in Unix-epoch µs, the profiler's clock
         self.epoch = time.perf_counter()
+        self.epoch_unix_us = time.time_ns() / 1e3
         self.events: List[dict] = []
         self.dropped = 0
         self._lock = threading.Lock()
@@ -63,7 +77,7 @@ class Tracer:
         ev = {
             "name": name,
             "ph": "X",
-            "ts": (t0 - self.epoch) * 1e6,  # Chrome trace wants microseconds
+            "ts": self._us(t0),  # Chrome trace wants microseconds
             "dur": (t1 - t0) * 1e6,
             "pid": os.getpid(),
             "tid": threading.get_ident(),
@@ -92,7 +106,7 @@ class Tracer:
             "ph": phase,
             "cat": "request",
             "id": str(fid),
-            "ts": (t - self.epoch) * 1e6,
+            "ts": self._us(t),
             "pid": os.getpid(),
             "tid": threading.get_ident(),
         }
@@ -101,6 +115,10 @@ class Tracer:
         if args:
             ev["args"] = {k: _jsonable(v) for k, v in args.items()}
         self._append(ev)
+
+    def _us(self, t: float) -> float:
+        """``perf_counter`` reading ``t`` in µs since the Unix epoch."""
+        return self.epoch_unix_us + (t - self.epoch) * 1e6
 
     def _append(self, ev: dict) -> None:
         with self._lock:
@@ -175,11 +193,24 @@ def _jsonable(v):
         return repr(v)
 
 
+class ProfilerRange(record_function):
+    """A span's profiler range, ``repro_torch.<name>``: what
+    :func:`repro_torch.obs.span` returns while obs is disabled and a
+    profiler records."""
+
+    def __init__(self, name: str):
+        super().__init__(PREFIX + name)
+
+    def annotate(self, **kw) -> "ProfilerRange":
+        return self
+
+
 class Span:
     """One timed scope.  Use as a context manager; re-entrant per instance
-    is not supported (make a new span instead)."""
+    is not supported (make a new span instead).  While a profiler records
+    it is also a ``repro_torch.<name>`` profiler range."""
 
-    __slots__ = ("tracer", "name", "args", "t0", "depth")
+    __slots__ = ("tracer", "name", "args", "t0", "depth", "_range")
 
     def __init__(self, tracer: Tracer, name: str, args: Dict[str, object]):
         self.tracer = tracer
@@ -187,6 +218,7 @@ class Span:
         self.args = args
 
     def __enter__(self) -> "Span":
+        self._range = ProfilerRange(self.name).__enter__() if _profiler_enabled() else None
         self.depth = self.tracer._enter()
         self.t0 = time.perf_counter()
         return self
@@ -197,34 +229,14 @@ class Span:
         if exc_type is not None:
             self.args.setdefault("error", exc_type.__name__)
         self.tracer.add_event(self.name, self.t0, t1, self.depth, self.args)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         return False
 
     def annotate(self, **kw) -> "Span":
         """Attach args discovered mid-span (tile counts, chosen configs)."""
         self.args.update(kw)
         return self
-
-    def sync(self, value):
-        """Block until ``value``'s device work is done; returns ``value``.
-        Use inside the span so asynchronous dispatch lands in the timing.
-
-        CUDA launches return before the card finishes, so when ``value``
-        holds a CUDA tensor (directly or inside a list, tuple or dict)
-        this waits on the device with ``torch.cuda.synchronize()``.
-        """
-        if _holds_cuda_tensor(value):
-            import torch
-
-            torch.cuda.synchronize()
-        return value
-
-
-def _holds_cuda_tensor(value) -> bool:
-    if isinstance(value, (list, tuple)):
-        return any(_holds_cuda_tensor(v) for v in value)
-    if isinstance(value, dict):
-        return any(_holds_cuda_tensor(v) for v in value.values())
-    return bool(getattr(value, "is_cuda", False))
 
 
 _TRACER: Optional[Tracer] = None

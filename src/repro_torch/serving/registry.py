@@ -122,14 +122,16 @@ class MatrixPlan:
         "max" (the max monoid; 0 for isolated nodes).  Every GNN layer call
         reuses the device tiles and the autotuned geometry.
         """
-        if op == "sum":
-            return self.matmat(x, bucketed=bucketed)
-        if op == "mean":
-            if self._mean_div is None:  # staged once, like the tiles
-                self._mean_div = mean_divisor(self.row_nnz, self.shape[0], self.device.device)
-            return self.matmat(x, bucketed=bucketed) / self._mean_div
-        if op == "max":
-            return self.matmat(x, bucketed=bucketed, combine="max")
+        with obs.span("agg.forward"):
+            if op == "sum":
+                return self.matmat(x, bucketed=bucketed)
+            if op == "mean":
+                if self._mean_div is None:  # staged once, like the tiles
+                    self._mean_div = mean_divisor(self.row_nnz, self.shape[0],
+                                                  self.device.device)
+                return self.matmat(x, bucketed=bucketed) / self._mean_div
+            if op == "max":
+                return self.matmat(x, bucketed=bucketed, combine="max")
         raise ValueError(f"unknown aggregation {op!r} (sum | mean | max)")
 
     def diff_aggregator(self, *, op: str = "sum", mode: str = "vjp"):

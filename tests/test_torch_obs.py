@@ -1,11 +1,10 @@
-"""The port's own telemetry copy: the gated facade, span sync, and the
+"""The port's own telemetry copy: the gated facade and the
 partition-quality metrics against the JAX package's on the same tiles."""
 import dataclasses
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import numpy as np
 import pytest
-import torch
 
 import repro.core as jcore
 import repro.core.matrices as jmat
@@ -14,7 +13,6 @@ import repro_torch.core as tcore
 import repro_torch.core.matrices as tmat
 from repro_torch import obs
 from repro_torch.obs import planview as tplanview
-from repro_torch.obs.trace import Span, Tracer
 
 
 @pytest.fixture()
@@ -55,14 +53,6 @@ def test_kernel_entry_points_count_launches_when_enabled(enabled_obs):
     assert obs.registry().value("kernels.bytes_modeled") == ops.modeled_launch_bytes(
         dt, 3, "stable", "grid"
     )
-
-
-def test_span_sync_returns_value_and_handles_cpu_tensors():
-    sp = Span(Tracer(), "s", {})
-    t = torch.ones(3)
-    assert sp.sync(t) is t
-    nested = {"a": [t, (t, 1)], "b": None}
-    assert sp.sync(nested) is nested
 
 
 @pytest.mark.parametrize("gen", ["circuit", "dense_block"])
