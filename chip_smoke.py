@@ -64,7 +64,11 @@ Phases (any failure exits non-zero; none is caught):
    fused kernels read tiles, run index and x and write y), and for the
    fused kernels the traffic of their chunk buffer beside it; for the
    partials max also kernel 4 with its run combine (``runs_ms``) beside
-   the plain combine it replaces (``plain_combine_ms``);
+   the plain combine it replaces (``plain_combine_ms``); and the argmax
+   kernel on ``m4_kron16`` at k = 8, 128 and 256, bitwise its plain
+   version, beside kernel 3 on the same tiles and x (``fused_max_ms``:
+   what the payload costs over the plain max), the torch lane chain it
+   replaced (``plain_ms``) and its bound (three outputs written);
 
 and, run after phase 2 (mesh), after phase 3 (zero, spmv), after phase 5
 (telemetry, distributed) and after phase 6 (train, solvers, lm, lm-train,
@@ -294,12 +298,15 @@ def kernel_bytes(name: str, d, k: int) -> int:
     ``[T, group, k]`` block; the fused kernels read the tiles, the run
     index and x and write y.  The fused kernels' own intermediates (the
     chunk index and the split runs' chunk buffer) are not the function's
-    work and stay out of the bound."""
+    work and stay out of the bound.  The argmax writes three outputs (y,
+    idx, coeff)."""
     T, group, _ = d.data.shape
     moved = d.data.nbytes + d.cols.nbytes + d.colblock.nbytes + d.shape[1] * k * 4
     if "partials" in name:
         return moved + T * group * k * 4
-    return moved + d.run_start.nbytes + d.run_rowgroup.nbytes + d.n_rowgroups * group * k * 4
+    outputs = 3 if name.endswith("_argmax") else 1
+    return (moved + d.run_start.nbytes + d.run_rowgroup.nbytes
+            + outputs * d.n_rowgroups * group * k * 4)
 
 
 def timed_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -315,6 +322,26 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def argmax_times_row(K, d, X, peak_bw: float) -> dict:
+    """A ``[times]`` row of the argmax kernel on staged tiles ``d`` at
+    ``X``'s width: beside it kernel 3 on the same tiles and x (the
+    payload's cost over the plain max) and the torch lane chain it
+    replaced on the card (its plain version)."""
+    k = X.shape[1]
+    iters = 20 if k < 128 else 10
+    got, want = K.hbp_spmm_fused_argmax(d, X), K.hbp_spmm_fused_argmax_plain(d, X)
+    exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+    del got, want
+    return {
+        "name": "hbp_spmm_fused_argmax", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hbp_argmax.cu", "replaces": None, "k": k,
+        "exact": exact, "ms": timed_ms(lambda: K.hbp_spmm_fused_argmax(d, X), iters),
+        "fused_max_ms": timed_ms(lambda: K.hbp_spmm_fused_max(d, X), iters),
+        "plain_ms": timed_ms(lambda: K.hbp_spmm_fused_argmax_plain(d, X), 3, warmup=1),
+        "bound_ms": kernel_bytes("hbp_spmm_fused_argmax", d, k) / peak_bw * 1e3,
+    }
 
 
 def max_err_within(y, y_plain, what: str) -> float:
@@ -2757,6 +2784,14 @@ def main() -> None:
             entry = lambda: ops.hbp_spmm(d, arg, **kw)  # noqa: E731
         row["entry_ms"] = timed_ms(entry, 10)
         rows[name, label, k] = row
+        log("[times] " + json.dumps(row))
+    # the argmax kernel (it replaces no TPU kernel) against kernel 3 on the
+    # same tiles and x, at the widths of the max rows
+    for k in (8, 128, 256):
+        X = torch.randn(kron.shape[1], k, device=dev, generator=g)
+        row = argmax_times_row(K, dt, X, peak_bw)
+        check(row["exact"], f"argmax kernel at k={k}: not bitwise its plain version")
+        row.update(matrix="m4_kron16", card=smi_line)
         log("[times] " + json.dumps(row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     # the kernels line: the SpMV kernels at k=1, the sum SpMM kernels at the

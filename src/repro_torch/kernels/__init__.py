@@ -2,7 +2,7 @@
 # the hand-written CUDA kernels (csrc/*.cu, built at first use by build.py)
 # beside their plain PyTorch versions, ops.py the public entry points,
 # ref.py the plain references they are checked against (and the argmax
-# SpMM), autodiff.py the autograd layer (backward = the transpose-tiles
+# SpMM's torch chains), autodiff.py the autograd layer (backward = the transpose-tiles
 # SpMM).  As in the JAX package, the name ``hbp_spmv`` here is the ops
 # entry point; import the kernel module's wrappers with
 # ``from repro_torch.kernels.hbp_spmv import``.

@@ -26,6 +26,7 @@ _HERE = Path(__file__).parent
 SOURCES: Dict[str, Path] = {
     "hbp_spmv": _HERE / "csrc" / "hbp_spmv.cu",
     "hbp_partials": _HERE / "csrc" / "hbp_partials.cu",
+    "hbp_argmax": _HERE / "csrc" / "hbp_argmax.cu",
 }
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
@@ -47,6 +48,9 @@ _SIGNATURES = {
         "hbp_spmm_partials_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
         "hbp_spmm_partials_max_launch": [_ptr] * 5 + [_int] * 12 + [_ptr],
         "hbp_spmm_partials_max_runs_launch": [_ptr] * 12 + [_int] * 14 + [_ptr],
+    },
+    "hbp_argmax": {
+        "hbp_spmm_fused_argmax_launch": [_ptr] * 15 + [_int] * 13 + [_ptr],
     },
 }
 

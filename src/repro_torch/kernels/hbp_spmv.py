@@ -14,12 +14,18 @@ and an unpadded right-hand side.  The fused-combine kernels
   where a row has no live entry (replaces ``_fused_spmm_max_kernel`` /
   ``hbp_spmm_fused_max``).
 
-All three walk the chunk index of
+:func:`hbp_spmm_fused_argmax` (``csrc/hbp_argmax.cu``) is the same max
+with its winners, ``(y, idx, coeff)``: it replaces no TPU kernel (the JAX
+package's argmax SpMM is jnp code) but the torch lane chain
+:func:`.ref.hbp_spmm_hashed_argmax_onepass`, its plain version, on the
+card.
+
+All four walk the chunk index of
 :class:`~repro_torch.kernels.ops.DeviceTiles`: no thread chains more than
 ``ops.RUN_CHUNK`` tiles, and the runs cut into several chunks are folded
 in chunk order by a second kernel of the same launch call, through a
 chunk buffer ``[n_split_chunks, group(, k)]`` that the wrapper allocates.
-The max kernel gives each chunk up to a block of threads, each one row
+The max kernels give each chunk up to a block of threads, each one row
 and a float4 column quad (or one column) at group 8, in the launch
 geometry of :func:`partials_geometry` over the chunks.
 
@@ -69,6 +75,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import ref as _ref
 
@@ -78,12 +85,14 @@ __all__ = [
     "hbp_spmv_fused",
     "hbp_spmm_fused",
     "hbp_spmm_fused_max",
+    "hbp_spmm_fused_argmax",
     "hbp_spmv_partials",
     "hbp_spmm_partials",
     "hbp_spmm_partials_max",
     "hbp_spmv_fused_plain",
     "hbp_spmm_fused_plain",
     "hbp_spmm_fused_max_plain",
+    "hbp_spmm_fused_argmax_plain",
     "hbp_spmv_partials_plain",
     "hbp_spmm_partials_plain",
     "hbp_spmm_partials_max_plain",
@@ -115,6 +124,18 @@ def hbp_spmm_fused_max_plain(dt, x: torch.Tensor) -> torch.Tensor:
     exact in any order, so this equals the kernel bitwise."""
     contrib = _ref.lane_max(dt.colblock, dt.data, dt.cols, x, dt.col_block)
     return _ref.segment_max_sorted(contrib, dt.rowgroup, dt.n_rowgroups, dt.rg_lengths)
+
+
+def hbp_spmm_fused_argmax_plain(dt, x: torch.Tensor):
+    """Plain version of the fused argmax SpMM: the one-pass paired lane
+    chain (:func:`ref.hbp_spmm_hashed_argmax_onepass`), equal to the
+    kernel bitwise, NaN positions and the sign of zero included."""
+    n, k = x.shape
+    x_blocked = F.pad(x, (0, 0, 0, -n % dt.col_block)).reshape(-1, dt.col_block, k)
+    return _ref.hbp_spmm_hashed_argmax_onepass(
+        dt.rowgroup, dt.colblock, dt.data, dt.cols, x_blocked,
+        n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
+    )
 
 
 def hbp_spmm_partials_plain(dt, x: torch.Tensor) -> torch.Tensor:
@@ -298,6 +319,27 @@ def _fused_max(dt, x: torch.Tensor, y: torch.Tensor,
     _fused_launch("hbp_spmm_fused_max_launch", dt, x, y, k, *g.launch_args)
 
 
+def _fused_argmax(dt, x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                  coeff: torch.Tensor) -> None:
+    """Launch the argmax chunk chains and their fold into ``y``, ``idx`` and
+    ``coeff`` in the fused max's geometry (:func:`partials_geometry` at
+    ``CHUNK_ROWS`` rows a thread); the three chunk buffers are allocated
+    here, uninitialised."""
+    k = x.shape[1]
+    buf = (dt.n_split_chunks, dt.data.shape[1], k)
+    part = (torch.empty(buf, dtype=torch.float32, device=x.device),
+            torch.empty(buf, dtype=torch.int32, device=x.device),
+            torch.empty(buf, dtype=torch.float32, device=x.device))
+    n_chunks = dt.chunk_dest.shape[0]
+    g = _default_geometry(dt, n_chunks, k, (x, y, idx, coeff, *part), CHUNK_ROWS)
+    tensors = (
+        dt.data, dt.cols, dt.colblock, dt.chunk_start, dt.chunk_dest, dt.run_chunk,
+        dt.split_run, dt.run_rowgroup, x, *part, y, idx, coeff,
+    )
+    _launch("hbp_argmax", "hbp_spmm_fused_argmax_launch", tensors, dt, x,
+            (n_chunks, dt.split_run.shape[0]), k, *g.launch_args)
+
+
 def _partials_launch(fn_name: str, dt, x: torch.Tensor, out: torch.Tensor, *k: int,
                      geometry: Optional[PartialsGeometry] = None) -> None:
     """Launch a partials kernel (sum or max) into ``out`` in ``geometry``
@@ -358,6 +400,32 @@ def hbp_spmm_fused_max(dt, x: torch.Tensor) -> torch.Tensor:
     _fused_max(dt, x, y)
     hbp_spmm_fused_max.launches += 1
     return y
+
+
+def hbp_spmm_fused_argmax(dt, x: torch.Tensor):
+    """The max-monoid SpMM with its winners, hashed row order: ``(y, idx,
+    coeff)``, each ``[n_rowgroups, group, k]`` (``idx`` int32).
+
+    ``y`` is :func:`hbp_spmm_fused_max`'s, bit for bit; ``idx`` the lowest
+    global column whose live slot's product equals ``y`` (``+0.0`` equal to
+    ``-0.0``) and ``coeff`` that slot's stored value, ``(-1, 0)`` where a
+    row has no live slot or its max is NaN.  The outputs are filled with
+    ``(-inf, -1, 0)`` before the launch, for the row groups that own no
+    tiles; ``ops`` maps ``-inf`` in ``y`` to 0 after assembly.
+    """
+    _check(dt, x, 2, "hbp_spmm_fused_argmax")
+    if x.device.type == "cpu":
+        return hbp_spmm_fused_argmax_plain(dt, x)
+    k = x.shape[1]
+    shape = (dt.n_rowgroups, dt.data.shape[1], k)
+    y = torch.full(shape, float("-inf"), dtype=torch.float32, device=x.device)
+    idx = torch.full(shape, -1, dtype=torch.int32, device=x.device)
+    coeff = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    if dt.run_rowgroup.shape[0] == 0 or k == 0:
+        return y, idx, coeff
+    _fused_argmax(dt, x, y, idx, coeff)
+    hbp_spmm_fused_argmax.launches += 1
+    return y, idx, coeff
 
 
 def _partials_out(dt, x: torch.Tensor, *k: int) -> torch.Tensor:
@@ -438,6 +506,7 @@ for _wrapper in (
     hbp_spmv_fused,
     hbp_spmm_fused,
     hbp_spmm_fused_max,
+    hbp_spmm_fused_argmax,
     hbp_spmv_partials,
     hbp_spmm_partials,
     hbp_spmm_partials_max,

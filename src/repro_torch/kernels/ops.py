@@ -19,7 +19,8 @@ hash permutation:
 aggregation on every strategy (the fused or partials max kernels, or the
 masked lane max of :mod:`.ref` under ``"stable"``/``"reference"``), and
 ``hbp_spmm_argmax`` the same max with its winners (the forward of max
-aggregation's gradient, torch code as in the JAX package).
+aggregation's gradient: a CUDA kernel on the card, where the JAX package
+has jnp code).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card present they raise rather than fall back.
@@ -552,13 +553,14 @@ def hbp_spmm_argmax(
     (:mod:`.autodiff`): the backward scatters ``coeff * cotangent`` to row
     ``idx`` of the input.
 
-    As in the JAX package this is not a TPU kernel: the reduction is the
-    monoid-exact lane chain of :mod:`.ref` in torch code, on the device
-    the tiles are staged on.  ``passes=1`` (default) carries a paired
-    (value, index, coefficient) payload through one pass over the tile
-    stream (:func:`.ref.hbp_spmm_hashed_argmax_onepass`); ``passes=3`` is
-    the three-pass oracle (:func:`.ref.hbp_spmm_hashed_argmax`).  Both
-    give the same triple.
+    ``passes=1`` (default) carries a paired (value, index, coefficient)
+    payload through one pass over the tile stream: on the card the
+    hand-written kernel :func:`.hbp_spmv.hbp_spmm_fused_argmax` (recorded
+    as strategy ``"fused"``), on the CPU its plain version, the torch lane
+    chain :func:`.ref.hbp_spmm_hashed_argmax_onepass` (``"stable"``).
+    ``passes=3`` is the three-pass torch oracle
+    (:func:`.ref.hbp_spmm_hashed_argmax`, ``"stable"``) on either device.
+    All give the same triple.
     """
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes!r}")
@@ -566,18 +568,22 @@ def hbp_spmm_argmax(
     if x.dim() != 2:
         raise ValueError(f"X must be [n_cols, k], got shape {tuple(x.shape)}")
     k = x.shape[1]
-    _record_launch(dt, k, op="spmm_argmax", strategy="stable", k_tiling="grid",
-                   combine="max", passes=passes)
+    fused = passes == 1 and dt.device.type == "cuda"
+    _record_launch(dt, k, op="spmm_argmax", strategy="fused" if fused else "stable",
+                   k_tiling="grid", combine="max", passes=passes)
     n = dt.shape[0]
     if dt.n_tiles == 0:  # no tiles: every row is empty
         return (torch.zeros((n, k), dtype=torch.float32, device=dt.device),
                 torch.full((n, k), -1, dtype=torch.int32, device=dt.device),
                 torch.zeros((n, k), dtype=torch.float32, device=dt.device))
-    fn = _ref.hbp_spmm_hashed_argmax_onepass if passes == 1 else _ref.hbp_spmm_hashed_argmax
-    y_h, idx_h, coeff_h = fn(
-        dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_matrix(x.contiguous(), dt.col_block),
-        n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
-    )
+    x = x.contiguous()
+    if passes == 1:
+        y_h, idx_h, coeff_h = _k.hbp_spmm_fused_argmax(dt, x)
+    else:
+        y_h, idx_h, coeff_h = _ref.hbp_spmm_hashed_argmax(
+            dt.rowgroup, dt.colblock, dt.data, dt.cols, blocked_matrix(x, dt.col_block),
+            n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths,
+        )
     y_h = y_h.masked_fill_(torch.isneginf(y_h), 0.0)  # empty rows aggregate to 0
     with obs.span("kernels.unpermute"):
         return (_ref.unpermute(y_h, dt.perm, n), _ref.unpermute(idx_h, dt.perm, n),

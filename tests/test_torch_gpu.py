@@ -18,6 +18,7 @@ from repro_torch.core.matrices import banded_fem, circuit, rmat
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.hbp_spmv import (
     hbp_spmm_fused,
+    hbp_spmm_fused_argmax,
     hbp_spmm_fused_max,
     hbp_spmm_fused_max_plain,
     hbp_spmm_fused_plain,
@@ -484,26 +485,120 @@ def test_max_carries_nan_on_the_card(cuda, name):
         _same_bits(hbp_spmm_partials_max(dt, X), P, ("padding only", k))
 
 
+def _argmax_cases(cuda):
+    """``(name, tiles, staged tiles)`` of the argmax tests: R-MAT at lane 8
+    and at a lane the generic loop takes (12), the hub matrix at both (runs
+    split into several chunks, so the fold runs; empty row groups), and the
+    signed-zero matrix (ties of ``+0.0`` and ``-0.0`` in lane, tile and
+    chunk order)."""
+    for lane in (8, 12):
+        cfg = PartitionConfig(row_block=256, col_block=1024, group=8, lane=lane)
+        tiles = build_tiles(MATRICES["rmat"](), cfg)
+        yield f"rmat-{lane}", tiles, ops.device_tiles(tiles, cuda)
+        tiles, dt = _hub(cuda, lane)
+        yield f"hub-{lane}", tiles, dt
+    rows, cols, vals, shape, _ = signed_zero_coo()
+    tiles = build_tiles(csr_from_coo(COOMatrix(rows, cols, vals, shape)),
+                        PartitionConfig(**ZERO_CONFIG))
+    yield "signed-zero", tiles, ops.device_tiles(tiles, cuda)
+
+
+def _argmax_rhs(name, n, k, g):
+    """x with ties, signed zeros, NaN rows and infinite entries (a live
+    product of -inf keeps its column); on the signed-zero matrix zeros, so
+    every product is a signed zero, with +inf at row 4's two columns in
+    odd columns (only -inf products) and NaN at rows 0-1's column 3."""
+    if name == "signed-zero":
+        X = torch.zeros(n, k, device=g.device)
+        X[7, 1::2] = X[70, 1::2] = float("inf")
+        X[3, 2::3] = float("nan")
+        return X
+    X = torch.randn(n, k, device=g.device, generator=g)
+    X[:, 0] = torch.round(X[:, 0])  # ties
+    sign = torch.sign(torch.randn(n, device=g.device, generator=g))
+    X[:, k // 2] = sign * 0.0  # +0.0 and -0.0
+    X[5] = float("nan")
+    X[9, ::2] = float("inf")
+    X[11, 1::2] = float("-inf")
+    return X
+
+
+def _same_triple(got, want, what):
+    """Equal bit patterns, NaN in the same places."""
+    for a, b, name in zip(got, want, ("y", "idx", "coeff")):
+        a = a.cpu()
+        if a.is_floating_point():
+            nan = torch.isnan(b)
+            assert torch.equal(torch.isnan(a), nan), (what, name)
+            a, b = a[~nan].view(torch.int32), b[~nan].view(torch.int32)
+        assert torch.equal(a, b), (what, name)
+
+
 @pytest.mark.parametrize("passes", [1, 3])
 def test_argmax_on_the_card_equals_the_cpu(cuda, passes):
-    """The argmax SpMM is exact torch code: the card gives the CPU's
-    triple bit for bit (NaN positions included)."""
-    tiles = build_tiles(MATRICES["rmat"](), PartitionConfig(row_block=256, col_block=1024,
-                                                           group=8, lane=8))
-    dt, dt_cpu = ops.device_tiles(tiles, cuda), ops.device_tiles(tiles, "cpu")
+    """The card's argmax triple (the fused argmax kernel at ``passes=1``,
+    the three-pass torch chain at 3) is the CPU's one-pass and three-pass
+    torch chains' bit for bit: NaN positions and the sign of zero included,
+    on both column paths (k = 1, 6 and an x offset from 16 bytes: one
+    column a thread; k = 8, 128, 256: four), the unrolled and the generic
+    lane loop, split runs folded across chunks, and row groups with no
+    tiles."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    for k in (1, 8, 128):
-        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
-        X[:, 0] = torch.round(X[:, 0])  # ties
-        X[5] = float("nan")
-        for a, b in zip(ops.hbp_spmm_argmax(dt, X, passes=passes),
-                        ops.hbp_spmm_argmax(dt_cpu, X.cpu(), passes=passes)):
-            a = a.cpu()
-            if a.is_floating_point():
-                assert torch.equal(torch.isnan(a), torch.isnan(b)), k
-                a, b = torch.nan_to_num(a), torch.nan_to_num(b)
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            assert torch.equal(a, b), k
+    empty_rowgroups = 0
+    for name, tiles, dt in _argmax_cases(cuda):
+        dt_cpu = ops.device_tiles(tiles, "cpu")
+        empty_rowgroups += tiles.n_rowgroups - np.unique(tiles.rowgroup).size
+        for k in (1, 6, 8, 128, 256):
+            X = _argmax_rhs(name, dt.shape[1], k, g)
+            want = [ops.hbp_spmm_argmax(dt_cpu, X.cpu(), passes=p) for p in (1, 3)]
+            for Xk in (X, _offset(X)) if k == 8 else (X,):
+                got = ops.hbp_spmm_argmax(dt, Xk, passes=passes)
+                for p, w in zip((1, 3), want):
+                    _same_triple(got, w, (name, k, Xk.data_ptr() % 16, p))
+    assert empty_rowgroups > 0
+
+
+def test_argmax_kernel_counts_its_launches(cuda, tmp_path):
+    """Each ``passes=1`` call of the argmax on the card launches the kernel
+    once, counted by ``hbp_spmm_fused_argmax.launches`` and by
+    ``kernels.launches{op=spmm_argmax, strategy=fused}``; ``passes=3``
+    launches it never and is counted as ``"stable"``.  A SAGE-max train
+    step launches it once a layer and walks the torch chain never."""
+    from repro_torch import obs
+    from repro_torch.graph import power_law_graph
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.serving import MatrixRegistry
+
+    tiles, dt = _hub(cuda, 8)
+    X = torch.randn(dt.shape[1], 8, device=cuda)
+    labels = dict(op="spmm_argmax", k_tiling="grid", combine="max")
+    obs.reset()
+    obs.enable()
+    try:
+        for passes, counts in ((1, (1, 1, 0)), (3, (0, 0, 1)), (1, (1, 1, 0))):
+            before = (hbp_spmm_fused_argmax.launches,
+                      obs.registry().value("kernels.launches", strategy="fused", **labels),
+                      obs.registry().value("kernels.launches", strategy="stable", **labels))
+            ops.hbp_spmm_argmax(dt, X, passes=passes)
+            after = (hbp_spmm_fused_argmax.launches,
+                     obs.registry().value("kernels.launches", strategy="fused", **labels),
+                     obs.registry().value("kernels.launches", strategy="stable", **labels))
+            assert tuple(a - b for a, b in zip(after, before)) == counts, passes
+    finally:
+        obs.disable()
+        obs.reset()
+    adj = power_law_graph(2000, 8.0, seed=6, symmetric=False)
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2000, 32)).astype(np.float32)
+    y = rng.integers(0, 5, 2000)
+    reg = MatrixRegistry(device=cuda, cache_dir=tmp_path / "c", search=False)
+    trainer = NodeClassifierTrainer([32, 64, 64, 5], model="sage", op="max", registry=reg)
+    trainer.fit(adj, x, y, steps=1, key=3)  # admission and the first step
+    before = hbp_spmm_fused_argmax.launches
+    with ref.count_traversals() as walks:
+        trainer.fit(adj, x, y, steps=1, key=3)
+    assert hbp_spmm_fused_argmax.launches - before == 3
+    assert walks[0] == 0
 
 
 @pytest.mark.parametrize("strategy,kernel", [("fused", hbp_spmm_fused),

@@ -29,6 +29,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.hbp_spmv import (
     PartialsGeometry,
     hbp_spmm_fused,
+    hbp_spmm_fused_argmax,
     hbp_spmm_fused_max,
     hbp_spmm_partials,
     hbp_spmm_partials_max,
@@ -434,6 +435,41 @@ def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
     finally:
         obs.disable()
         obs.reset()
+
+
+def test_argmax_on_cpu_tiles_is_the_one_pass_torch_chain(hub):
+    """On CPU tiles the argmax entry point runs the fused argmax kernel's
+    plain version, the one-pass torch chain: its triple, bit for bit (NaN
+    rows and empty row groups included), counted as strategy "stable" and
+    never as the kernel."""
+    _, dt = hub
+    X = torch.as_tensor(np.random.default_rng(15).standard_normal((dt.shape[1], 8)),
+                        dtype=torch.float32)
+    X[:, 0] = torch.round(X[:, 0])  # ties
+    X[3] = float("nan")
+    y, idx, coeff = tref.hbp_spmm_hashed_argmax_onepass(
+        dt.rowgroup, dt.colblock, dt.data, dt.cols, tops.blocked_matrix(X, dt.col_block),
+        n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths)
+    y = y.masked_fill(torch.isneginf(y), 0.0)
+    want = [tref.unpermute(a, dt.perm, dt.shape[0]) for a in (y, idx, coeff)]
+    labels = dict(op="spmm_argmax", k_tiling="grid", combine="max")
+    launches = hbp_spmm_fused_argmax.launches
+    obs.reset()
+    obs.enable()
+    try:
+        got = tops.hbp_spmm_argmax(dt, X)
+        assert obs.registry().value("kernels.launches", strategy="stable", **labels) == 1
+        assert obs.registry().value("kernels.launches", strategy="fused", **labels) == 0
+    finally:
+        obs.disable()
+        obs.reset()
+    assert hbp_spmm_fused_argmax.launches == launches
+    assert bool(torch.isnan(want[0]).any())
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        nan = torch.isnan(b) if b.is_floating_point() else torch.zeros_like(b, dtype=torch.bool)
+        assert torch.equal(torch.isnan(a) if a.is_floating_point() else nan, nan)
+        assert torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
 def test_deferred_paths_raise_not_implemented(tiles):
