@@ -68,7 +68,13 @@ Phases (any failure exits non-zero; none is caught):
    kernel on ``m4_kron16`` at k = 8, 128 and 256, bitwise its plain
    version, beside kernel 3 on the same tiles and x (``fused_max_ms``:
    what the payload costs over the plain max), the torch lane chain it
-   replaced (``plain_ms``) and its bound (three outputs written);
+   replaced (``plain_ms``) and its bound (three outputs written); and
+   GAT's SDDMM kernel (:func:`sddmm_times_rows`) on ``A + I`` of the
+   graph phase's ``A`` at the ogbn-arxiv GAT's 3 heads of C = 250 and 40,
+   within ``1e-5 * |want| + 1e-5 * sqrt(C)`` of a float64 ``ref.sddmm``,
+   beside its plain version, ``torch.sparse.sampled_addmm`` on a batched
+   CSR (the heads as the batch: cuSPARSE's SDDMM, a yardstick the port
+   does not call) and ``h100bench/work/gat.py``'s bound;
 
 and, run after phase 2 (mesh), after phase 3 (zero, spmv), after phase 5
 (telemetry, distributed) and after phase 6 (train, solvers, lm, lm-train,
@@ -342,6 +348,108 @@ def argmax_times_row(K, d, X, peak_bw: float) -> dict:
         "plain_ms": timed_ms(lambda: K.hbp_spmm_fused_argmax_plain(d, X), 3, warmup=1),
         "bound_ms": kernel_bytes("hbp_spmm_fused_argmax", d, k) / peak_bw * 1e3,
     }
+
+
+# GAT at the ogbn-arxiv widths (h100bench/configs/gat.json): heads, and a
+# head's width in the hidden layers and in the output layer
+GAT_HEADS, GAT_WIDTHS = 3, (250, 40)
+
+
+def sddmm_library(indptr, cols, n: int, heads: int):
+    """GAT's SDDMM by one ``torch.sparse.sampled_addmm`` (cuSPARSE's SDDMM)
+    on a batched CSR of ``heads`` copies of the structure, the heads as the
+    batch: ``(call, layout)``, where ``layout(dy, z)`` lays ``[n, H C]``
+    operands out as the call takes them (``[H, n, C]``, ``[H, C, n]``) and
+    ``call`` gives ``[H, nnz]``."""
+    nnz = cols.numel()
+    structure = torch.sparse_csr_tensor(
+        indptr.expand(heads, -1).contiguous(), cols.long().expand(heads, -1).contiguous(),
+        torch.zeros((heads, nnz), dtype=torch.float32, device=cols.device),
+        size=(heads, n, n), check_invariants=False)
+
+    def layout(dy, z):
+        width = dy.shape[1] // heads
+        return (dy.view(n, heads, width).transpose(0, 1).contiguous(),
+                z.view(n, heads, width).permute(1, 2, 0).contiguous())
+
+    def call(a, b):
+        return torch.sparse.sampled_addmm(structure, a, b, beta=0.0).values().view(heads, nnz)
+
+    return call, layout
+
+
+def sddmm_times_rows(adj, dev, g, smi_line: str) -> list:
+    """``[times]`` rows of GAT's SDDMM kernel on the CSR ``adj`` (``A +
+    I``), ``GAT_HEADS`` heads at each of ``GAT_WIDTHS``: held to a float64
+    ``ref.sddmm`` at the tolerance of ``tests/test_torch_gpu.py``'s SDDMM
+    test and to itself on a second launch, its launches counted from a
+    reset, beside its plain version, ``sddmm_library``'s call on the same
+    operands (its layout not timed) and the work model's bound
+    (``h100bench/work/gat.py``: what ``sddmm_roofline.train`` reads)."""
+    from h100bench.peaks import peaks_for
+    from h100bench.work import gat as gat_work
+    from repro_torch.kernels import ref
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    peaks = peaks_for(torch.cuda.get_device_name(dev))
+    n, nnz, heads = adj.shape[0], adj.nnz, GAT_HEADS
+    indptr = torch.as_tensor(adj.indptr, dtype=torch.int64, device=dev)
+    cols = torch.as_tensor(adj.indices, dtype=torch.int32, device=dev)
+    library, layout = sddmm_library(indptr, cols, n, heads)
+    rows = []
+    for width in GAT_WIDTHS:
+        dy = torch.randn((n, heads * width), device=dev, generator=g)
+        z = torch.randn((n, heads * width), device=dev, generator=g)
+
+        def kernel():
+            return K.hbp_sddmm(indptr, cols, dy, z, heads)
+
+        K.hbp_sddmm.launches = 0
+        got = kernel()
+        want = ref.sddmm(indptr, cols, dy.double(), z.double(), heads)
+        err = (got.double() - want).abs()
+        check(bool(torch.all(err <= 1e-5 * want.abs() + 1e-5 * width ** 0.5)),
+              f"SDDMM kernel at C={width}: disagrees with the float64 plain version "
+              f"(max abs err {err.max().item():.3e})")
+        check(torch.equal(got, kernel()), f"SDDMM kernel at C={width}: two launches differ")
+        operands = layout(dy, z)
+        library_err = (library(*operands).t().double() - want).abs().max().item()
+        max_err = err.max().item()
+        del got, want, err
+        iters = 20
+        ms = timed_ms(kernel, iters)
+        calls = 2 + 2 + iters  # the checks, timed_ms's warm-up, the timed calls
+        check(K.hbp_sddmm.launches == calls,
+              f"SDDMM kernel at C={width}: {K.hbp_sddmm.launches} launches for {calls} calls")
+        rows.append({
+            "name": "hbp_sddmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hbp_sddmm.cu", "replaces": None,
+            "matrix": "A + I", "n": n, "nnz": nnz, "heads": heads, "C": width,
+            "launches": K.hbp_sddmm.launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": timed_ms(lambda: ref.sddmm(indptr, cols, dy, z, heads), 3, warmup=1),
+            "library_ms": timed_ms(lambda: library(*operands), iters),
+            "library_max_abs_err": library_err,
+            "bound_ms": gat_work.sddmm(n, nnz, heads, width).bound_s(peaks) * 1e3,
+            "card": smi_line,
+        })
+        del operands, dy, z
+    return rows
+
+
+def sddmm_phase() -> None:
+    """The SDDMM rows of ``[times]`` alone, on ``A + I`` of the graph
+    phase's ``rmat_graph(1 << 16, 79.345703125, seed=4)``:
+    ``python -c "import chip_smoke; chip_smoke.sddmm_phase()"``."""
+    from repro_torch.graph import add_self_loops, rmat_graph
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    adj = add_self_loops(rmat_graph(1 << 16, 79.345703125, seed=4))
+    for row in sddmm_times_rows(adj, dev, torch.Generator(device=dev).manual_seed(0), smi_line):
+        log("[times] " + json.dumps(row))
 
 
 def max_err_within(y, y_plain, what: str) -> float:
@@ -2792,6 +2900,10 @@ def main() -> None:
         row = argmax_times_row(K, dt, X, peak_bw)
         check(row["exact"], f"argmax kernel at k={k}: not bitwise its plain version")
         row.update(matrix="m4_kron16", card=smi_line)
+        log("[times] " + json.dumps(row))
+    # GAT's SDDMM kernel (it replaces no TPU kernel) on A + I of the graph
+    # phase's A, at the heads and widths of the gat.train.kron16 cell
+    for row in sddmm_times_rows(add_self_loops(A), dev, g, smi_line):
         log("[times] " + json.dumps(row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     # the kernels line: the SpMV kernels at k=1, the sum SpMM kernels at the

@@ -186,6 +186,13 @@ class Partition2D:
         lo = bi * self.cfg.row_block
         return lo, min(lo + self.cfg.row_block, self.csr.n_rows)
 
+    def block_entry_ids(self, bi: int, bj: int) -> np.ndarray:
+        """CSR positions of block (bi, bj)'s entries, in
+        :meth:`block_entries`' order."""
+        _, nbc = self.grid
+        lo, hi = self.begin_nnz[bi * nbc + bj], self.begin_nnz[bi * nbc + bj + 1]
+        return self.entry_perm[lo:hi]
+
     def block_entries(self, bi: int, bj: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(rows, local_cols, data) of block (bi, bj), row-major within block."""
         nbr, nbc = self.grid

@@ -27,7 +27,7 @@ The tile arrays produced here feed ``kernels/hbp_spmv.py`` directly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +60,9 @@ class HBPTiles:
     shape: Tuple[int, int]
     cfg: PartitionConfig
     n_rowgroups: int
+    # i64[nnz]: CSR entry e sits at data.reshape(-1)[slot[e]] (None for
+    # tiles rebuilt from arrays that carry no map)
+    slot: Optional[np.ndarray] = None
 
     @property
     def n_tiles(self) -> int:
@@ -134,7 +137,10 @@ def build_tiles(
     cut the reordered rows into groups of ``cfg.group``, pad each group to
     ``ceil(max_nnz / lane)`` tiles of ``group × lane``, gather column ids
     local to the column block.  Padded slots carry ``col=0, data=0`` so the
-    kernel's gather-multiply contributes nothing.
+    kernel's gather-multiply contributes nothing.  Each CSR entry's position
+    is carried through the sorts into ``slot``, its flat index into ``data``:
+    new values in CSR order are written into a copy of ``data`` without a
+    rebuild (GAT's attention weights, :mod:`repro_torch.kernels.autodiff`).
     """
     cfg = cfg or PartitionConfig()
     with obs.span(
@@ -168,6 +174,8 @@ def _build_tiles_impl(csr: CSRMatrix, cfg: PartitionConfig, method: str) -> HBPT
     tiles_cols: list = []
     t_rowgroup: list = []
     t_colblock: list = []
+    t_entries: list = []  # (CSR positions, flat slots in the unsorted stream)
+    n_built = 0  # tiles packed so far, in packing order
     perm_global = np.empty(nbr * R, dtype=np.int64)
 
     for bi in range(nbr):
@@ -194,6 +202,7 @@ def _build_tiles_impl(csr: CSRMatrix, cfg: PartitionConfig, method: str) -> HBPT
                 if part.block_nnz()[bi, bj] == 0:
                     continue
                 rows, cols, vals = part.block_entries(bi, bj)
+                ids = part.block_entry_ids(bi, bj)
                 inv = np.empty(R, dtype=np.int64)
                 inv[perm] = np.arange(R)
                 row_pos = inv[rows]
@@ -219,6 +228,8 @@ def _build_tiles_impl(csr: CSRMatrix, cfg: PartitionConfig, method: str) -> HBPT
                 t_idx = tile_base[grp] + k // LANE
                 dblk[t_idx, sub, k % LANE] = vals.astype(np.float32)
                 cblk[t_idx, sub, k % LANE] = cols.astype(np.int32)
+                t_entries.append((ids[order], ((n_built + t_idx) * G + sub) * LANE + k % LANE))
+                n_built += total
                 tiles_data.append(dblk)
                 tiles_cols.append(cblk)
                 g_of_tile = np.repeat(np.arange(gpb), ntile)
@@ -242,6 +253,13 @@ def _build_tiles_impl(csr: CSRMatrix, cfg: PartitionConfig, method: str) -> HBPT
     rowgroup, colblock = rowgroup[order], colblock[order]
     first = np.ones(rowgroup.size, dtype=np.int32)
     first[1:] = (rowgroup[1:] != rowgroup[:-1]).astype(np.int32)
+    # each entry's slot, its packed tile moved to that tile's grid position
+    new_tile = np.empty(order.size, dtype=np.int64)
+    new_tile[order] = np.arange(order.size)
+    slot = np.zeros(csr.nnz, dtype=np.int64)
+    per_tile = G * LANE
+    for ids, flat in t_entries:
+        slot[ids] = new_tile[flat // per_tile] * per_tile + flat % per_tile
 
     return HBPTiles(
         data=data,
@@ -253,6 +271,7 @@ def _build_tiles_impl(csr: CSRMatrix, cfg: PartitionConfig, method: str) -> HBPT
         shape=csr.shape,
         cfg=cfg,
         n_rowgroups=nbr * gpb,
+        slot=slot,
     )
 
 

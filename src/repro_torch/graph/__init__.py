@@ -3,13 +3,14 @@
 # directly.  graph.py builds/normalizes adjacencies (host side, numpy),
 # aggregate.py wraps the SpMM combine monoids (sum/mean/max) as
 # aggregation closures over staged tiles or served plans, and
-# layers_gnn.py composes them into GCN / GraphSAGE forwards, and train/
+# layers_gnn.py composes them into GCN / GraphSAGE / GAT forwards, and train/
 # trains them (sampling, losses, the trainer) through the differentiable
 # aggregators.
 from .aggregate import (
     AGGREGATIONS,
     aggregate,
     make_aggregator,
+    make_attention_aggregator,
     make_diff_aggregator,
     mean_divisor,
     plan_aggregator,
@@ -24,12 +25,17 @@ from .graph import (
     rmat_graph,
 )
 from .layers_gnn import (
+    GAT,
     GCN,
     DenseParams,
+    GATParams,
     GraphSAGE,
     SageParams,
+    gat_forward,
+    gat_layer,
     gcn_forward,
     gcn_layer,
+    init_gat,
     init_gcn,
     init_sage,
     params_from_arrays,
@@ -42,6 +48,7 @@ __all__ = [
     "aggregate",
     "make_aggregator",
     "make_diff_aggregator",
+    "make_attention_aggregator",
     "mean_divisor",
     "plan_aggregator",
     "plan_diff_aggregator",
@@ -53,13 +60,18 @@ __all__ = [
     "power_law_graph",
     "DenseParams",
     "SageParams",
+    "GATParams",
     "GCN",
     "GraphSAGE",
+    "GAT",
     "init_gcn",
     "init_sage",
+    "init_gat",
     "params_from_arrays",
     "gcn_layer",
     "gcn_forward",
     "sage_layer",
     "sage_forward",
+    "gat_layer",
+    "gat_forward",
 ]

@@ -24,6 +24,10 @@ does.
 differentiable twins (:mod:`repro_torch.kernels.autodiff`): the sum and
 mean backward is one SpMM over the transpose tiles, the max backward a
 scatter to the winners the forward's argmax SpMM saved.
+:func:`make_attention_aggregator` (and, for a served pair,
+:meth:`~repro_torch.serving.registry.MatrixPlan.attention_aggregator`)
+is GAT's attention aggregation, whose values are new on every call: the
+attention weights written into copies of the staged tiles' values.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ __all__ = [
     "aggregate",
     "make_aggregator",
     "make_diff_aggregator",
+    "make_attention_aggregator",
     "mean_divisor",
     "plan_aggregator",
     "plan_diff_aggregator",
@@ -202,3 +207,29 @@ def plan_diff_aggregator(plan, *, op: str = "sum", mode: str = "vjp") -> Callabl
     """
     _check_op(op)
     return plan.diff_aggregator(op=op, mode=mode)
+
+
+def make_attention_aggregator(
+    adj: CSRMatrix, *, strategy: Optional[str] = None, device=None
+) -> Callable:
+    """GAT's differentiable attention aggregation over ``adj`` (row =
+    destination; GAT's convention is ``A + I``), tiled here with its
+    transpose (:func:`repro_torch.kernels.autodiff.hbp_transpose`) and
+    staged on ``device`` with the slot maps: ``agg(z, s_src, s_dst)``, see
+    :func:`repro_torch.kernels.autodiff.attention_aggregator`.  For served
+    graphs prefer the registry pair's
+    :meth:`~repro_torch.serving.registry.MatrixPlan.attention_aggregator`."""
+    pair = autodiff.hbp_transpose(adj)
+    dev = ops.resolve_device(device)
+    strategy = _strategy(strategy, dev)
+    ops.check_strategy(strategy)
+
+    def stage(tiles):
+        meta = dict(n_rowgroups=tiles.n_rowgroups, n_rows=tiles.shape[0],
+                    col_block=tiles.cfg.col_block, strategy=strategy)
+        return ops.device_tiles(tiles, dev), meta
+
+    (dt, meta), (dt_T, meta_T) = stage(pair.tiles), stage(pair.tiles_T)
+    maps = autodiff.attention_maps(adj, pair.tiles, pair.tiles_T, dev)
+    return autodiff.attention_aggregator(dt, dt_T, maps, meta, meta_T)
+

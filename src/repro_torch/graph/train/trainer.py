@@ -2,10 +2,11 @@
 
 The trainer composes the pieces the rest of the package owns:
 
-* forward — :mod:`repro_torch.graph.layers_gnn` GCN/GraphSAGE stacks over
-  a differentiable aggregator (:mod:`repro_torch.kernels.autodiff`), so
-  the gradient of the loss launches the transpose-adjacency SpMM (or the
-  argmax scatter) instead of recording the kernels;
+* forward — :mod:`repro_torch.graph.layers_gnn` GCN/GraphSAGE/GAT stacks
+  over a differentiable aggregator (:mod:`repro_torch.kernels.autodiff`),
+  so the gradient of the loss launches the transpose-adjacency SpMM (or
+  the argmax scatter, or for GAT the SpMMs on Aᵀ rewritten with the
+  attention weights and the SDDMM) instead of recording the kernels;
 * optimizer — :func:`repro_torch.optim.adamw.adamw_update` (warmup +
   cosine schedule, global-norm clipping), the JAX package's step written
   out on tensors;
@@ -25,8 +26,9 @@ This is the port of ``repro.graph.train.trainer``: parameters are lists of
 :class:`~repro_torch.graph.layers_gnn.SageParams` tensors, the state is
 functional (each step returns a new :class:`TrainState`), and the same
 carried weights, optimizer state and sampler seed give the JAX package's
-loss history.  Training runs on the card unless ``device="cpu"`` is
-passed (or the registry's device is the CPU).
+loss history.  GAT (:class:`~repro_torch.graph.layers_gnn.GATParams`) is
+the port's own: the JAX package has none.  Training runs on the card
+unless ``device="cpu"`` is passed (or the registry's device is the CPU).
 """
 from __future__ import annotations
 
@@ -47,12 +49,15 @@ from repro_torch.optim.adamw import (
     tree_flatten,
 )
 
-from ..aggregate import make_diff_aggregator, plan_diff_aggregator
+from ..aggregate import make_attention_aggregator, make_diff_aggregator, plan_diff_aggregator
 from ..graph import add_self_loops, normalize_adjacency
 from ..layers_gnn import (
     DenseParams,
+    GATParams,
     SageParams,
+    gat_forward,
     gcn_forward,
+    init_gat,
     init_gcn,
     init_sage,
     params_from_arrays,
@@ -63,7 +68,9 @@ from .sampling import sample_neighbors
 
 __all__ = ["TrainState", "NodeClassifierTrainer"]
 
-MODELS = ("gcn", "sage")
+# the forwards and their adjacency conventions: GCN over Â, SAGE over the
+# raw A, GAT over A + I (attention weights written into the tiles each step)
+MODELS = ("gcn", "sage", "gat")
 
 
 class TrainState(NamedTuple):
@@ -74,13 +81,16 @@ class TrainState(NamedTuple):
 
 
 class NodeClassifierTrainer:
-    """Cross-entropy node classification with GCN or GraphSAGE.
+    """Cross-entropy node classification with GCN, GraphSAGE or GAT.
 
     ``dims`` is the layer stack ``[n_features, hidden..., n_classes]``.
     ``model`` picks the forward and the adjacency convention: ``"gcn"``
     sum-aggregates over the symmetric-normalized self-loop adjacency,
     ``"sage"`` mean/max-aggregates over the raw adjacency (``op``
-    defaults accordingly and must be "sum" | "mean" | "max").  Pass a
+    defaults accordingly and must be "sum" | "mean" | "max"), ``"gat"``
+    attends over ``A + I`` with ``heads`` heads a layer (hidden widths in
+    ``dims`` are the heads' concatenation, the output width each head's;
+    ``op`` is "sum": the attention-weighted sum).  Pass a
     ``registry`` to serve aggregation from resident, content-hashed
     (A, Aᵀ) plan pairs — required for mini-batch cache reuse to pay off;
     training then runs on the registry's device with its strategy.
@@ -98,6 +108,7 @@ class NodeClassifierTrainer:
         registry=None,
         strategy: Optional[str] = None,
         mode: str = "vjp",
+        heads: int = 1,
         device=None,
     ):
         if model not in MODELS:
@@ -106,7 +117,10 @@ class NodeClassifierTrainer:
             raise ValueError("dims needs at least [n_features, n_classes]")
         self.dims = list(dims)
         self.model = model
-        self.op = op or ("sum" if model == "gcn" else "mean")
+        self.op = op or ("mean" if model == "sage" else "sum")
+        if model == "gat" and (self.op != "sum" or mode != "vjp"):
+            raise ValueError("model 'gat' aggregates with op='sum' in mode='vjp'")
+        self.heads = heads
         self.adamw = adamw or AdamWConfig(
             lr_peak=2e-2, warmup_steps=5, decay_steps=500, weight_decay=0.0
         )
@@ -121,7 +135,7 @@ class NodeClassifierTrainer:
     # --- setup -------------------------------------------------------------
 
     def _kind(self):
-        return DenseParams if self.model == "gcn" else SageParams
+        return {"gcn": DenseParams, "sage": SageParams, "gat": GATParams}[self.model]
 
     def init(self, generator) -> TrainState:
         """Glorot weights drawn from ``generator`` (a ``torch.Generator``,
@@ -129,13 +143,17 @@ class NodeClassifierTrainer:
         the same weights), zero biases, zero moments."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        init = init_gcn if self.model == "gcn" else init_sage
-        params = init(generator, self.dims, device=self.device)
+        if self.model == "gat":
+            params = init_gat(generator, self.dims, self.heads, device=self.device)
+        else:
+            init = init_gcn if self.model == "gcn" else init_sage
+            params = init(generator, self.dims, device=self.device)
         return TrainState(params=params, opt_state=init_opt_state(params, self.adamw))
 
     def load_state(self, params: Sequence[tuple], opt_state=None) -> TrainState:
         """A state carried across from the JAX package: ``params`` one tuple
-        of arrays per layer in field order (``init_gcn`` / ``init_sage``),
+        of arrays per layer in field order (``init_gcn`` / ``init_sage``, or
+        :class:`~repro_torch.graph.layers_gnn.GATParams`' fields),
         ``opt_state`` its ``{"m", "v", "step"}`` in numpy
         (:func:`~repro_torch.optim.adamw.load_opt_state`), or ``None`` for
         a fresh one."""
@@ -145,9 +163,12 @@ class NodeClassifierTrainer:
         return TrainState(carried, load_opt_state(opt_state, device=self.device))
 
     def prepare_adjacency(self, adj: CSRMatrix) -> CSRMatrix:
-        """The model's adjacency convention: Â for GCN, raw for SAGE."""
+        """The model's adjacency convention: Â for GCN, raw for SAGE, A + I
+        for GAT (its values unused: the attention weights replace them)."""
         if self.model == "gcn":
             return normalize_adjacency(add_self_loops(adj), "sym")
+        if self.model == "gat":
+            return add_self_loops(adj)
         return adj
 
     def aggregator(self, adj: CSRMatrix) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -157,8 +178,14 @@ class NodeClassifierTrainer:
         pair — re-admitting the same content (the resident full graph, or
         a repeated sampled batch) is free; without one, tiles are built
         directly per call.  Ops whose backward never launches Aᵀ (max, or
-        the jvp mode) admit only the forward direction.
+        the jvp mode) admit only the forward direction.  GAT's pair is
+        admitted to be rewritten (its slot maps staged), and the aggregator
+        takes ``(z, s_src, s_dst)``.
         """
+        if self.model == "gat":
+            if self.registry is not None:
+                return self.registry.admit_pair(adj, rewritable=True).attention_aggregator()
+            return make_attention_aggregator(adj, strategy=self.strategy, device=self.device)
         if self.registry is not None:
             if needs_transpose(self.op, self.mode):
                 plan = self.registry.admit_pair(adj)
@@ -172,7 +199,7 @@ class NodeClassifierTrainer:
     # --- one step ----------------------------------------------------------
 
     def _forward(self, agg, params, x: torch.Tensor) -> torch.Tensor:
-        fwd = gcn_forward if self.model == "gcn" else sage_forward
+        fwd = {"gcn": gcn_forward, "sage": sage_forward, "gat": gat_forward}[self.model]
         return fwd(agg, params, x)
 
     def _on_device(self, x, labels, mask):

@@ -3,7 +3,8 @@
 # beside their plain PyTorch versions, ops.py the public entry points,
 # ref.py the plain references they are checked against (and the argmax
 # SpMM's torch chains), autodiff.py the autograd layer (backward = the transpose-tiles
-# SpMM).  As in the JAX package, the name ``hbp_spmv`` here is the ops
+# SpMM; GAT's attention aggregation, whose backward adds the SDDMM of
+# csrc/hbp_sddmm.cu).  As in the JAX package, the name ``hbp_spmv`` here is the ops
 # entry point; import the kernel module's wrappers with
 # ``from repro_torch.kernels.hbp_spmv import``.
 from . import autodiff, ops, ref

@@ -39,18 +39,36 @@ scatter is itself differentiable, so order 2 works.  On the card its
 atomic adds make the summation order change from run to run: an element
 of ``x̄`` that receives ``m`` terms is within ``(m + 1) * 2**-24 *
 sum|terms|`` of the exact sum, not bitwise reproducible.
+
+GAT's attention aggregation (:func:`attention_aggregator`) is one Function
+over ``(z, s_src, s_dst)`` whose sparse matrix gets new values on every
+call: per head ``y_h = α_h z_h`` with ``α[(i, j), h] = softmax_j
+LeakyReLU_0.2(s_dst[i, h] + s_src[j, h])`` over each row's stored entries.
+The structure is tiled once; each call writes α into a copy of the tile
+values through the slot maps of :class:`AttentionMaps` and launches one
+sum SpMM per head.  The backward writes α into copies of Aᵀ's tiles and
+launches one SpMM per head on them (``z̄_h = α_hᵀ ȳ_h``), the SDDMM
+``ᾱ[(i, j), h] = ȳ_i,h · z_j,h`` (:func:`.hbp_spmv.hbp_sddmm`, a kernel on
+the card), then the softmax and LeakyReLU backward and the score
+gradients as segment sums (``index_add_``: atomic on the card, so their
+last bits change from run to run).  It is differentiable once.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import dataclasses
+from typing import Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch import obs
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.tile import HBPTiles, build_tiles, tuned_partition_config
 
 from . import ops
+from .hbp_spmv import hbp_sddmm
 
 __all__ = [
     "PairedTiles",
@@ -63,6 +81,12 @@ __all__ = [
     "mean_divisor",
     "needs_transpose",
     "DIFF_MODES",
+    "AttentionMaps",
+    "attention_maps",
+    "rewritten_tiles",
+    "edge_softmax",
+    "attention_aggregator",
+    "NEGATIVE_SLOPE",
 ]
 
 DIFF_MODES = ("vjp", "jvp")
@@ -394,3 +418,146 @@ def diff_aggregator(
         degree=degree,
         mode=mode,
     )
+
+
+# GAT's LeakyReLU slope on the edge scores (Veličković et al. 2018)
+NEGATIVE_SLOPE = 0.2
+
+
+class AttentionMaps(NamedTuple):
+    """What writing new values into A's and Aᵀ's staged tiles needs, on the
+    tiles' device: A's CSR structure (row = destination) and each entry's
+    slot in both tile sets (:attr:`HBPTiles.slot <repro_torch.core.tile.
+    HBPTiles>`)."""
+
+    indptr: torch.Tensor  # i64[n_rows + 1]
+    rows: torch.Tensor  # i64[nnz]: each entry's row
+    cols: torch.Tensor  # i32[nnz]
+    slot: torch.Tensor  # i64[nnz]: entry e of A at data.view(-1)[slot[e]] of A's tiles
+    slot_T: torch.Tensor  # i64[nnz]: entry e = (i, j) as Aᵀ's (j, i), in Aᵀ's tiles
+
+
+def attention_maps(csr: CSRMatrix, tiles: HBPTiles, tiles_T: HBPTiles, device) -> AttentionMaps:
+    """The maps of ``csr`` tiled as ``tiles`` and its transpose as
+    ``tiles_T`` (built from :meth:`CSRMatrix.transpose`, whose entry order
+    is a stable sort of A's on the column), staged on ``device``."""
+    if tiles.slot is None or tiles_T.slot is None:
+        raise ValueError("the tiles carry no slot map: build them with build_tiles")
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), csr.row_nnz())
+    order = np.lexsort((rows, csr.indices))  # Aᵀ's position p holds A's entry order[p]
+    position_T = np.empty_like(order)
+    position_T[order] = np.arange(order.size)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    return AttentionMaps(put(csr.indptr, torch.int64), put(rows, torch.int64),
+                         put(csr.indices, torch.int32), put(tiles.slot, torch.int64),
+                         put(tiles_T.slot[position_T], torch.int64))
+
+
+def rewritten_tiles(dt: ops.DeviceTiles, slot: torch.Tensor,
+                    values: torch.Tensor) -> List[ops.DeviceTiles]:
+    """One copy of ``dt`` per column of ``values`` (``[nnz, H]``, CSR
+    order), whose data holds that column at ``slot`` and 0 in the padded
+    slots; the structure tensors are shared (counter
+    ``agg.rewritten_slots``: the slots written)."""
+    heads = values.shape[1]
+    data = torch.zeros((heads, dt.data.numel()), dtype=torch.float32, device=dt.device)
+    data.index_copy_(1, slot, values.t())
+    if obs.enabled():
+        obs.counter("agg.rewritten_slots").inc(slot.numel() * heads)
+    return [dataclasses.replace(dt, data=data[h].view_as(dt.data)) for h in range(heads)]
+
+
+def _edge_scores(s_src: torch.Tensor, s_dst: torch.Tensor, maps: AttentionMaps) -> torch.Tensor:
+    """``s_dst[row(e)] + s_src[col(e)]``, ``[nnz, H]``: the scores before
+    the LeakyReLU."""
+    return s_dst.index_select(0, maps.rows) + s_src.index_select(0, maps.cols)
+
+
+def edge_softmax(s_src: torch.Tensor, s_dst: torch.Tensor, maps: AttentionMaps) -> torch.Tensor:
+    """GAT's attention weights ``α``, ``[nnz, H]`` in CSR order: the
+    LeakyReLU of the edge scores, softmax over each row's entries with the
+    row's maximum subtracted."""
+    e = F.leaky_relu(_edge_scores(s_src, s_dst, maps), NEGATIVE_SLOPE)
+    top = torch.full_like(s_dst, float("-inf")).scatter_reduce_(
+        0, maps.rows[:, None].expand_as(e), e, "amax")
+    ex = (e - top.index_select(0, maps.rows)).exp_()
+    total = torch.zeros_like(s_dst).index_add_(0, maps.rows, ex)
+    return ex.div_(total.index_select(0, maps.rows))
+
+
+class _AttentionPlan(NamedTuple):
+    dt: ops.DeviceTiles
+    dt_T: ops.DeviceTiles
+    maps: AttentionMaps
+    kw: dict  # ops.hbp_spmm's keywords on A
+    kw_T: dict  # and on Aᵀ
+
+
+def _per_head(tiles: List[ops.DeviceTiles], x: torch.Tensor, kw: dict) -> torch.Tensor:
+    """``[tiles[h] @ x_h]`` side by side, ``x_h`` the h-th of ``len(tiles)``
+    equal column blocks of ``x``: one SpMM launch a head."""
+    width = x.shape[1] // len(tiles)
+    return torch.cat([ops.hbp_spmm(t, x[:, h * width:(h + 1) * width], **kw)
+                      for h, t in enumerate(tiles)], dim=1)
+
+
+class _Attention(torch.autograd.Function):
+    """``y = concat_h α_h z_h`` from ``(z, s_src, s_dst)``; see the module
+    notes.  Spans: ``agg.attention`` (scores, softmax, rewrite),
+    ``agg.forward`` (the SpMMs); backward ``agg.attention_backward`` (the
+    rewrite of Aᵀ, then the softmax and score gradients), ``agg.backward``
+    (the SpMMs on Aᵀ), ``agg.sddmm``."""
+
+    @staticmethod
+    def forward(ctx, z, s_src, s_dst, att):
+        with obs.span("agg.attention"):
+            alpha = edge_softmax(s_src, s_dst, att.maps)
+            tiles = rewritten_tiles(att.dt, att.maps.slot, alpha)
+        with obs.span("agg.forward"):
+            y = _per_head(tiles, z, att.kw)
+        ctx.save_for_backward(z, s_src, s_dst, alpha)
+        ctx.att = att
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        z, s_src, s_dst, alpha = ctx.saved_tensors
+        att = ctx.att
+        maps, heads = att.maps, alpha.shape[1]
+        dy = _f32(dy)
+        with obs.span("agg.attention_backward"):
+            tiles_T = rewritten_tiles(att.dt_T, maps.slot_T, alpha)
+        with obs.span("agg.backward"):
+            dz = _per_head(tiles_T, dy, att.kw_T)
+        with obs.span("agg.sddmm"):
+            d_alpha = hbp_sddmm(maps.indptr, maps.cols, dy, z.contiguous(), heads)
+        with obs.span("agg.attention_backward"):
+            weighted = torch.zeros_like(s_dst).index_add_(0, maps.rows, alpha * d_alpha)
+            de = alpha * (d_alpha - weighted.index_select(0, maps.rows))
+            de = torch.where(_edge_scores(s_src, s_dst, maps) > 0, de, NEGATIVE_SLOPE * de)
+            d_dst = torch.zeros_like(s_dst).index_add_(0, maps.rows, de)
+            d_src = torch.zeros_like(s_src).index_add_(0, maps.cols, de)
+        return dz, d_src, d_dst, None
+
+
+def attention_aggregator(dt: ops.DeviceTiles, dt_T: ops.DeviceTiles, maps: AttentionMaps,
+                         meta: dict, meta_T: dict) -> Callable:
+    """GAT's differentiable attention aggregation over staged tiles of A
+    and Aᵀ (one tile set for a symmetric structure): ``agg(z, s_src,
+    s_dst)`` with ``z`` ``[n, H * C]`` and the scores ``[n, H]`` returns
+    ``[n, H * C]``, head h's columns ``α_h z_h``.  ``meta`` / ``meta_T``
+    are the keywords of :func:`repro_torch.kernels.ops.hbp_spmm` beyond
+    the tiles, as for :func:`device_diff_aggregator`."""
+    att = _AttentionPlan(dt, dt_T, maps, _spmm_meta(meta), _spmm_meta(meta_T))
+
+    def agg(z, s_src, s_dst):
+        if z.shape[1] % s_src.shape[1] or s_src.shape != s_dst.shape:
+            raise ValueError(f"z {tuple(z.shape)} is not [n, H * C] for scores "
+                             f"{tuple(s_src.shape)} and {tuple(s_dst.shape)}")
+        return _Attention.apply(z, s_src, s_dst, att)
+
+    return agg

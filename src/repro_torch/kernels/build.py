@@ -27,6 +27,7 @@ SOURCES: Dict[str, Path] = {
     "hbp_spmv": _HERE / "csrc" / "hbp_spmv.cu",
     "hbp_partials": _HERE / "csrc" / "hbp_partials.cu",
     "hbp_argmax": _HERE / "csrc" / "hbp_argmax.cu",
+    "hbp_sddmm": _HERE / "csrc" / "hbp_sddmm.cu",
 }
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
@@ -51,6 +52,9 @@ _SIGNATURES = {
     },
     "hbp_argmax": {
         "hbp_spmm_fused_argmax_launch": [_ptr] * 15 + [_int] * 13 + [_ptr],
+    },
+    "hbp_sddmm": {
+        "hbp_sddmm_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
     },
 }
 

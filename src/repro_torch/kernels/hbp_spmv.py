@@ -20,7 +20,11 @@ package's argmax SpMM is jnp code) but the torch lane chain
 :func:`.ref.hbp_spmm_hashed_argmax_onepass`, its plain version, on the
 card.
 
-All four walk the chunk index of
+:func:`hbp_sddmm` (``csrc/hbp_sddmm.cu``) is GAT's attention gradient,
+one dot product per stored CSR entry and head; it replaces no TPU kernel
+either (the JAX package has no GAT) and walks the CSR, not the tiles.
+
+The four fused wrappers walk the chunk index of
 :class:`~repro_torch.kernels.ops.DeviceTiles`: no thread chains more than
 ``ops.RUN_CHUNK`` tiles, and the runs cut into several chunks are folded
 in chunk order by a second kernel of the same launch call, through a
@@ -96,6 +100,7 @@ __all__ = [
     "hbp_spmv_partials_plain",
     "hbp_spmm_partials_plain",
     "hbp_spmm_partials_max_plain",
+    "hbp_sddmm",
 ]
 
 
@@ -502,6 +507,56 @@ def hbp_spmm_partials_max(dt, x: torch.Tensor, *, runs: bool = False) -> torch.T
     return out
 
 
+# CSR entries one warp of the SDDMM walks (csrc/hbp_sddmm.cu)
+SDDMM_PER_WARP = 32
+
+
+def hbp_sddmm(indptr: torch.Tensor, cols: torch.Tensor, dy: torch.Tensor, z: torch.Tensor,
+              heads: int) -> torch.Tensor:
+    """GAT's attention gradient, ``out[e, h] = dy[row(e), h, :] . z[cols[e],
+    h, :]`` over every stored entry of a CSR matrix (row = destination):
+    ``f32[nnz, heads]``, in CSR order.
+
+    ``indptr`` is i64 ``[n_rows + 1]``, ``cols`` i32 ``[nnz]``, ``dy``
+    ``[n_rows, heads * head_dim]`` and ``z`` ``[n_cols, heads * head_dim]``,
+    contiguous float32 on one device.  On the card the kernel of
+    ``csrc/hbp_sddmm.cu`` (one warp a chunk of ``SDDMM_PER_WARP``
+    entries); on the CPU its plain version :func:`.ref.sddmm`, which adds
+    each dot product in another order (the two agree to rounding)."""
+    if heads <= 0 or dy.dim() != 2 or z.dim() != 2 or dy.shape[1] != z.shape[1] \
+            or dy.shape[1] % heads:
+        raise ValueError(f"hbp_sddmm: dy {tuple(dy.shape)} and z {tuple(z.shape)} must be "
+                         f"[n, heads * head_dim] with heads = {heads}")
+    if indptr.dtype != torch.int64 or cols.dtype != torch.int32:
+        raise TypeError("hbp_sddmm: indptr must be int64 and cols int32")
+    if dy.dtype != torch.float32 or z.dtype != torch.float32:
+        raise TypeError("hbp_sddmm: dy and z must be float32")
+    if indptr.numel() != dy.shape[0] + 1:
+        raise ValueError(f"hbp_sddmm: indptr has {indptr.numel()} entries for {dy.shape[0]} rows")
+    device = dy.device
+    if any(t.device != device for t in (indptr, cols, z)):
+        raise ValueError("hbp_sddmm: every operand must lie on one device")
+    if device.type == "cpu":
+        return _ref.sddmm(indptr, cols, dy, z, heads)
+    from .build import library
+
+    tensors = (indptr, cols, dy, z)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("hbp_sddmm: every operand must be contiguous")
+    nnz = cols.numel()
+    if nnz >= 2 ** 31:
+        raise ValueError(f"hbp_sddmm: {nnz} entries exceed the kernel's 32-bit count")
+    out = torch.empty((nnz, heads), dtype=torch.float32, device=device)
+    err = library("hbp_sddmm").hbp_sddmm_launch(
+        *(t.data_ptr() for t in (*tensors, out)), dy.shape[0], nnz, heads,
+        dy.shape[1] // heads, SDDMM_PER_WARP, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hbp_sddmm_launch failed to launch: CUDA error {err}")
+    hbp_sddmm.launches += 1
+    return out
+
+
 for _wrapper in (
     hbp_spmv_fused,
     hbp_spmm_fused,
@@ -510,6 +565,7 @@ for _wrapper in (
     hbp_spmv_partials,
     hbp_spmm_partials,
     hbp_spmm_partials_max,
+    hbp_sddmm,
 ):
     _wrapper.launches = 0
 del _wrapper

@@ -49,6 +49,7 @@ __all__ = [
     "hbp_spmm_hashed_argmax_onepass",
     "count_traversals",
     "unpermute",
+    "sddmm",
 ]
 
 _TRAVERSALS = [0]
@@ -439,3 +440,29 @@ def unpermute(y_hashed: torch.Tensor, perm: torch.Tensor, n_rows: int) -> torch.
     padded = flat.new_zeros((perm.shape[0],) + tuple(flat.shape[1:]))
     padded[perm] = flat
     return padded[:n_rows]
+
+
+# products of one edge block of the plain SDDMM: [entries, heads * head_dim]
+_SDDMM_BLOCK = 1 << 24
+
+
+def sddmm(indptr: torch.Tensor, cols: torch.Tensor, dy: torch.Tensor, z: torch.Tensor,
+          heads: int) -> torch.Tensor:
+    """The sampled dense-dense product of GAT's attention gradient:
+    ``out[e, h] = dy[row(e), h, :] . z[cols[e], h, :]`` for every stored
+    entry ``e`` of a CSR matrix (row = destination), ``[nnz, heads]``, with
+    ``dy`` and ``z`` ``[n, heads * head_dim]`` (the plain version of
+    ``csrc/hbp_sddmm.cu``).  Gathers ``[entries, heads, head_dim]`` rows of
+    both in edge blocks of at most ``_SDDMM_BLOCK`` products."""
+    n_rows, nnz = indptr.numel() - 1, cols.numel()
+    width = dy.shape[1]
+    counts = indptr[1:] - indptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=dy.device), counts)
+    cols = cols.long()
+    out = torch.empty((nnz, heads), dtype=dy.dtype, device=dy.device)
+    step = max(1, _SDDMM_BLOCK // max(width, 1))
+    for e0 in range(0, nnz, step):
+        a = dy[rows[e0:e0 + step]].view(-1, heads, width // heads)
+        b = z[cols[e0:e0 + step]].view(-1, heads, width // heads)
+        out[e0:e0 + step] = (a * b).sum(-1)
+    return out

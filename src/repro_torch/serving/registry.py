@@ -72,6 +72,10 @@ class MatrixPlan:
     # residency serves both directions)
     transpose_name: Optional[str] = None
     _transpose: object = dataclasses.field(default=None, repr=False, compare=False)
+    # the slot maps of a pair admitted to be rewritten
+    # (admit_pair(..., rewritable=True)): kernels.autodiff.AttentionMaps on
+    # the plan's device, held by the forward plan
+    _attention: object = dataclasses.field(default=None, repr=False, compare=False)
     # clamped in-degree [n, 1] on the plan's device, staged on the first
     # mean aggregation (and dropped with the tiles when budget-unstaged)
     _mean_div: object = dataclasses.field(default=None, repr=False, compare=False)
@@ -158,6 +162,23 @@ class MatrixPlan:
             op=op,
             degree=self.row_nnz if op == "mean" else None,
             mode=mode,
+        )
+
+    def attention_aggregator(self):
+        """GAT's differentiable attention aggregation over the resident
+        pair (:func:`repro_torch.kernels.autodiff.attention_aggregator`):
+        each call writes its attention weights into copies of A's tile
+        values, its backward into copies of Aᵀ's.  Needs the slot maps
+        that :meth:`MatrixRegistry.admit_pair` stages with
+        ``rewritable=True``."""
+        if self._attention is None:
+            raise ValueError(
+                f"plan {self.name!r} has no slot maps: admit the matrix with "
+                "MatrixRegistry.admit_pair(..., rewritable=True)"
+            )
+        plan_T = self._transpose
+        return autodiff.attention_aggregator(
+            self.device, plan_T.device, self._attention, self._meta(), plan_T._meta()
         )
 
     def operator(self):
@@ -385,6 +406,7 @@ class MatrixRegistry:
         *,
         cfg: Optional[PartitionConfig] = None,
         cfg_T: Optional[PartitionConfig] = None,
+        rewritable: bool = False,
     ) -> MatrixPlan:
         """Admit ``csr`` AND its transpose, linked for differentiable use.
 
@@ -396,6 +418,12 @@ class MatrixRegistry:
         serves both directions, with no second build.  Returns the forward
         plan; reach the transpose with :meth:`transpose_of`.  Under an HBM
         budget the pair is evicted and re-staged as one unit.
+
+        ``rewritable=True`` also stages, once, the slot maps that write new
+        values into copies of both sides' tile values (each entry of A's
+        slot in A's tiles and in Aᵀ's), for
+        :meth:`MatrixPlan.attention_aggregator`; other pairs stage none.
+        Once staged, the tiles' host ``slot`` arrays are dropped.
         """
         plan = self.admit(csr, name, cfg=cfg)
         if plan._transpose is not None:  # pair already linked (re-admission)
@@ -408,19 +436,25 @@ class MatrixRegistry:
                 )
             if partner is not plan:  # keep both sides' admission counts in step
                 self.metrics.counter("registry.admissions", matrix=partner.name).inc()
-            return plan
-        plan_T = self.admit(csr.transpose(), f"{plan.name}::T", cfg=cfg_T)
-        plan.transpose_name = plan_T.name
-        plan._transpose = plan_T
-        plan_T.transpose_name = plan.name
-        plan_T._transpose = plan
-        if self.evictor is not None and plan_T is not plan:
-            # forward and backward are one residency unit: evicting one
-            # side would re-stage it on the next training step
-            self.evictor.link(plan.name, plan_T.name)
-            # admitting Aᵀ may have unstaged A before the link pinned the
-            # pair: stage the whole unit now
-            self._ensure_staged(plan)
+        else:
+            plan_T = self.admit(csr.transpose(), f"{plan.name}::T", cfg=cfg_T)
+            plan.transpose_name = plan_T.name
+            plan._transpose = plan_T
+            plan_T.transpose_name = plan.name
+            plan_T._transpose = plan
+            if self.evictor is not None and plan_T is not plan:
+                # forward and backward are one residency unit: evicting one
+                # side would re-stage it on the next training step
+                self.evictor.link(plan.name, plan_T.name)
+                # admitting Aᵀ may have unstaged A before the link pinned the
+                # pair: stage the whole unit now
+                self._ensure_staged(plan)
+        if rewritable and plan._attention is None:
+            with obs.span("admit.slot_maps", matrix=plan.name):
+                plan._attention = autodiff.attention_maps(
+                    csr, plan.tiles, plan._transpose.tiles, self.device)
+            # staged: the host copies (i64[nnz] a side) serve nothing more
+            plan.tiles.slot = plan._transpose.tiles.slot = None
         return plan
 
     def transpose_of(self, plan: MatrixPlan) -> MatrixPlan:

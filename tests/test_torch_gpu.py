@@ -678,6 +678,67 @@ def test_training_on_the_card_matches_the_cpu(cuda, tmp_path):
             np.testing.assert_allclose(hist[strategy], hist["stable"], rtol=1e-4)
 
 
+@pytest.mark.parametrize("width", [250, 40])
+def test_sddmm_kernel_matches_its_plain_version(cuda, width):
+    """GAT's attention gradient on an R-MAT graph with hub rows (split over
+    several warps' chunks) and empty rows, at the ogbn-arxiv GAT's head
+    widths: the kernel's dot products against the plain version's, which
+    adds them in another order."""
+    from repro_torch.kernels.hbp_spmv import hbp_sddmm
+
+    adj = rmat(1 << 12, 120_000, seed=8, symmetric=False)
+    heads, n = 3, adj.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(16)
+    dy = torch.randn((n, heads * width), device=cuda, generator=g)
+    z = torch.randn((n, heads * width), device=cuda, generator=g)
+    indptr = torch.as_tensor(adj.indptr, device=cuda)
+    cols = torch.as_tensor(adj.indices, dtype=torch.int32, device=cuda)
+    before = hbp_sddmm.launches
+    got = hbp_sddmm(indptr, cols, dy, z, heads)
+    torch.cuda.synchronize()
+    assert hbp_sddmm.launches == before + 1
+    want = ref.sddmm(indptr, cols, dy.double(), z.double(), heads)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5 * width ** 0.5)
+    assert torch.equal(got, hbp_sddmm(indptr, cols, dy, z, heads))  # one order every launch
+
+
+def test_gat_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Three GAT steps through the registry-served pair: the fused sum
+    kernel on the rewritten tiles and the SDDMM kernel on the card, the
+    plain versions on the CPU, from the same weights; rtol 1e-4 as
+    test_training_on_the_card_matches_the_cpu (kernel 2's fused
+    multiply-adds, the card's atomic segment sums)."""
+    from repro_torch.graph import power_law_graph
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.kernels.hbp_spmv import hbp_sddmm
+    from repro_torch.serving import MatrixRegistry
+
+    adj = power_law_graph(3000, 8.0, seed=6, symmetric=True)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    labels = rng.integers(0, 5, 3000)
+    params = NodeClassifierTrainer([32, 48, 5], model="gat", heads=3, device="cpu").init(4)
+    arrays = [[t.numpy() for t in p] for p in params.params]
+    hist = {}
+    for dev in (cuda, "cpu"):
+        reg = MatrixRegistry(device=dev, cache_dir=tmp_path / str(dev), search=False)
+        trainer = NodeClassifierTrainer([32, 48, 5], model="gat", heads=3, registry=reg)
+        agg = trainer.aggregator(trainer.prepare_adjacency(adj))
+        state = trainer.load_state(arrays)
+        before = (hbp_sddmm.launches, hbp_spmm_fused.launches)
+        readings = []
+        for _ in range(3):
+            state, out = trainer.step(state, agg, x, labels)
+            readings.append((out["loss"], out["grad_norm"]))
+        if dev is cuda:  # 2 layers: one SDDMM and 3 + 3 head products each, a step
+            assert hbp_sddmm.launches - before[0] == 3 * 2
+            assert hbp_spmm_fused.launches - before[1] == 3 * 2 * 6
+        hist[str(dev)] = np.array(readings)
+    # AdamW's first steps move a weight by ~lr whatever its gradient's size,
+    # so the losses and gradient norms are compared, not the weights
+    np.testing.assert_allclose(hist[str(cuda)], hist["cpu"], rtol=1e-4)
+
+
 # --- the solvers on the card --------------------------------------------------
 
 

@@ -232,7 +232,7 @@ def test_trainer_state_init_and_evaluate(data):
     assert metrics["step"] == 1 and np.isclose(metrics["loss"], before["loss"], rtol=1e-6)
     assert not any(p.requires_grad for p in tadamw.tree_leaves(s3.params))
     with pytest.raises(ValueError, match="unknown model"):
-        TTrainer(DIMS, model="gat", device="cpu")
+        TTrainer(DIMS, model="gin", device="cpu")
     with pytest.raises(ValueError, match="dims"):
         TTrainer([4], device="cpu")
 
