@@ -2391,6 +2391,7 @@ def main() -> None:
           and dt_hub.n_split_chunks > 0, "the hub matrix lacks the runs it promises")
 
     errs = {}  # (kernel, matrix, k) -> max abs err against the plain version
+    widths = (1, 8, 40, 128, 250, 256)  # checked against the plain versions
     for label, d, csr in matrices:
         x = torch.randn(d.shape[1], device=dev, generator=g)
         y = K.hbp_spmv_fused(d, x)
@@ -2402,7 +2403,7 @@ def main() -> None:
         empty = torch.as_tensor(
             np.setdiff1d(np.arange(d.n_rowgroups), d.run_rowgroup.cpu().numpy()), device=dev)
         check(bool(torch.all(y[empty] == 0)), f"{label}: empty row groups are not zero (spmv)")
-        for k in (1, 8, 128, 256):
+        for k in widths:
             X = torch.randn(d.shape[1], k, device=dev, generator=g)
             c = k // 2
             X[:, c] = x
@@ -2459,9 +2460,10 @@ def main() -> None:
         log(f"[kernels] {label}: max abs err vs plain "
             + ", ".join(f"{n} k={k}: {e:.3e}" for (n, lab, k), e in errs.items()
                         if lab == label and not n.endswith("_max"))
-            + "; max kernels (and kernel 4 with its run combine) exactly plain at k=1, 8, 128, "
-              "256; bitwise SpMV == SpMM column "
-              "(fused and partials, k=1, 8, 128, 256, bucket 5->8; partials on the "
+            + "; max kernels (and kernel 4 with its run combine) exactly plain at k="
+            + ", ".join(map(str, widths)) + "; bitwise SpMV == SpMM column "
+              "(fused and partials, k=" + ", ".join(map(str, widths)) + ", bucket 5->8; "
+              "partials on the "
               "scalar-column path at k=3, 129 and 128 with x offset by one float); "
               "grid == loop at k=256 "
               "(sum and max); max equal under fused/partials/stable and to numpy on columns "
@@ -2828,7 +2830,10 @@ def main() -> None:
         ("m4_kron16", name, k) for k in (8, 128) for name in
         ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")
     ] + [("m4_kron16", name, 256)  # the GCN/SAGE hidden width
-         for name in ("hbp_spmm_partials", "hbp_spmm_fused_max", "hbp_spmm_partials_max")] + [
+         for name in ("hbp_spmm_fused", "hbp_spmm_partials", "hbp_spmm_fused_max",
+                      "hbp_spmm_partials_max")] + [
+        ("m4_kron16", "hbp_spmm_fused", 40),  # the GCN cells' output width
+        ("m4_kron16", "hbp_spmm_fused", 250)] + [  # a GAT head's width (float2 columns)
         ("m10_ohne2", "hbp_spmv_fused", 1), ("m10_ohne2", "hbp_spmm_fused", 8)]
     for label, name, k in cases:
         csr, d, A_csr = timed[label]

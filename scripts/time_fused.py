@@ -22,8 +22,14 @@ the entry point and the cuSPARSE product launch, from ``torch.profiler``,
 which host launch overhead does not enter.
 
 ``--family fused`` (the default): kernels 1-2 on ``m4_kron16`` (tuned
-geometry) at k = 1, 8, 128 and ``m10_ohne2`` (lane 128) at k = 1, 8; on a
-tree with a chunk index also the chunk chains alone (the fold skipped).
+geometry) at k = 1, 8, 40, 128, 129, 250, 256 (the GCN and GAT cells'
+widths, and one that takes scalar columns)
+and ``m10_ohne2`` (lane 128) at k = 1, 8; at k = 1 kernel 2 too, on an
+``[n, 1]`` x, alone and through the serving engine's k = 1 bucket
+(``ops.hbp_spmm_bucketed``); on a tree with a chunk index also the chunk chains alone
+(the fold skipped).  Its ``--geometry-sweep`` (trees whose fused sum takes
+a launch geometry) times kernel 2 on ``m4_kron16`` at other columns and
+rows a thread (``FUSED_GEOMETRIES``).
 ``--sweep`` (trees with a chunk index only) re-stages ``m4_kron16``'s
 chunk index at each ``RUN_CHUNK`` listed and times the kernels there,
 whole and without the fold.
@@ -63,7 +69,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import GNN_DIMS, card_peaks, kernel_bytes, timed_ms  # noqa: E402
+from chip_smoke import GNN_DIMS, kernel_bytes, timed_ms  # noqa: E402
 
 # enough launches that a time covers this many ms of steady work
 WINDOW_MS = 100.0
@@ -104,8 +110,21 @@ def sha256(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128),
-         ("m10_ohne2", 1), ("m10_ohne2", 8))
+CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 40), ("m4_kron16", 128),
+         ("m4_kron16", 129), ("m4_kron16", 250), ("m4_kron16", 256), ("m10_ohne2", 1),
+         ("m10_ohne2", 8))
+# k -> launch geometries (width, rows) of the fused sum's --geometry-sweep on
+# m4_kron16, each at min(k // width, SLAB) column units a slab (the sum's
+# launcher takes 1 or 2 rows a thread)
+FUSED_GEOMETRIES = {
+    1: [(1, 1), (1, 2)],
+    8: [(4, 1), (4, 2), (2, 1), (1, 1)],
+    40: [(4, 1), (4, 2), (2, 1), (2, 2)],
+    128: [(4, 1), (4, 2), (2, 1), (2, 2)],
+    129: [(1, 1), (1, 2)],
+    250: [(2, 1), (2, 2), (1, 1), (1, 2)],
+    256: [(4, 1), (4, 2), (2, 1), (2, 2)],
+}
 PARTIALS_CASES = (("m4_kron16", 1), ("m4_kron16", 8), ("m4_kron16", 128), ("m4_kron16", 256),
                   ("m10_ohne2", 1), ("m10_ohne2", 8),
                   ("hub", 1), ("hub", 8), ("hub", 128), ("hub", 256))
@@ -235,6 +254,7 @@ def main() -> None:
     from repro_torch.core import COOMatrix, PartitionConfig, build_tiles, csr_from_coo
     from repro_torch.core import tuned_partition_config
     from repro_torch.core.matrices import SUITE_SPECS
+    from repro_torch.analysis.roofline import spec_for
     from repro_torch.kernels import build, ops
 
     if not Path(ops.__file__).resolve().is_relative_to(src):
@@ -248,7 +268,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    _, peak_bw, _ = card_peaks(torch.cuda.get_device_name(0))
+    peak_bw = spec_for(torch.cuda.get_device_name(0)).hbm_bw
     build.build_all()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -359,6 +379,38 @@ def main() -> None:
             chains = dataclasses.replace(dt, split_run=dt.split_run[:0])
             row["chains_ms"] = steady_ms(lambda: kern(chains, arg))
         emit(row)
+        if k == 1:
+            # kernel 2 on the same x as an [n, 1] matrix: bitwise kernel 1;
+            # beside it the serving engine's k = 1 bucket (the entry point)
+            X1 = arg[:, None].contiguous()
+            out = K.hbp_spmm_fused(dt, X1)
+            bucket = lambda: ops.hbp_spmm_bucketed(dt, X1)  # noqa: E731
+            row = {"matrix": name, "k": 1, "kernel": "hbp_spmm_fused", "sha256": sha256(out),
+                   "equals_spmv": bool(torch.equal(out[..., 0], kern(dt, arg))),
+                   "ms": steady_ms(lambda: K.hbp_spmm_fused(dt, X1)),
+                   "bucket_ms": steady_ms(bucket)}
+            if args.profile:
+                row["kernel_device_us"] = device_us(lambda: K.hbp_spmm_fused(dt, X1))
+                row["bucket_device_us"] = device_us(bucket)
+            del out
+            emit(row)
+        sweep = FUSED_GEOMETRIES.get(k, ()) if name == "m4_kron16" else ()
+        if not (args.geometry_sweep and hasattr(K, "_fused_sum")):
+            sweep = ()
+        for width, rows_ in sweep:
+            X = arg[:, None].contiguous() if k == 1 else arg
+            group = dt.data.shape[1]
+            geo = K._geometry(int(dt.chunk_dest.shape[0]), group, k, width, rows_,
+                              min(k // width, K.SLAB))
+            y = torch.zeros((dt.n_rowgroups, group, k), device=dev)
+            launch = lambda: K._fused_sum(dt, X, y, geometry=geo)  # noqa: E731
+            launch()
+            row = {"family": "fused", "geometry": [width, rows_, geo.slab], "matrix": name,
+                   "k": k, "sha256": sha256(y), "ms": steady_ms(launch)}
+            if args.profile:
+                row["kernel_device_us"] = device_us(launch)
+            emit(row)
+            del y
 
     if args.sweep and args.family == "fused":
         csr, dt = staged["m4_kron16"]

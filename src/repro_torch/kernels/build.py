@@ -41,7 +41,7 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "hbp_spmv": {
         "hbp_spmv_fused_launch": [_ptr] * 11 + [_int] * 6 + [_ptr],
-        "hbp_spmm_fused_launch": [_ptr] * 11 + [_int] * 7 + [_ptr],
+        "hbp_spmm_fused_launch": [_ptr] * 11 + [_int] * 13 + [_ptr],
         "hbp_spmm_fused_max_launch": [_ptr] * 11 + [_int] * 13 + [_ptr],
     },
     "hbp_partials": {

@@ -25,13 +25,18 @@
 // common powers of two get an unrolled specialisation (LANE > 0), any
 // other width the generic loop (LANE = 0).  Both run the identical chain.
 //
-// scalar_sum_chain and vec_sum_chain are the SumOp chains of the fused sum
-// kernels (hbp_spmv.cu), one output element a thread: the same
+// scalar_sum_chain and vec_sum_chain are the SumOp chains of the fused
+// SpMV (hbp_spmv.cu, kernel 1), one (chunk, row) a thread: the same
 // multiply-adds in the same order, so the same bits; vec_sum_chain (LANE
 // > 0) reads each tile row as 16-byte vectors and loads the next step's
-// row while this step's x gathers are in flight.  The partials kernels
-// and the fused max give a thread several rows and columns of a tile
-// range instead (hbp_rows.cuh, hbp_partials.cu).
+// row while this step's x gathers are in flight.  The SpMM kernels and
+// the partials kernels give a thread several rows and columns of a tile
+// range instead (hbp_rows.cuh, hbp_partials.cu), in the same order of
+// multiply-adds; at k = 1 that walk took 10 % more device time than
+// these chains on m4_kron16 (PERF.md), so the SpMV keeps them.  x's row
+// stride k and column c are run-time arguments though kernel 1 passes 1
+// and 0: with k a compile-time 1 the same chain took 0.044 ms a launch on
+// m4_kron16 against 0.038 (H100 SXM, 700 W; PERF.md), with the same bits.
 
 #pragma once
 
@@ -178,8 +183,8 @@ inline cudaError_t grid_for(int64_t n_out, dim3* grid) {
 // operands' device current; returns cudaSuccess with the grid in *grid,
 // or the error to hand back to the caller.
 inline cudaError_t prepare_launch(int64_t n_out, int group, int lane, int col_block,
-                                  int k, int device, dim3* grid) {
-  if (n_out < 0 || group <= 0 || lane <= 0 || col_block <= 0 || k <= 0)
+                                  int device, dim3* grid) {
+  if (n_out < 0 || group <= 0 || lane <= 0 || col_block <= 0)
     return cudaErrorInvalidValue;
   const cudaError_t sized = grid_for(n_out, grid);
   if (sized != cudaSuccess) return sized;

@@ -1,25 +1,29 @@
-// The tile-row kernel of the max kernels for Hopper (sm_90a): the partials
-// max (hbp_partials.cu, kernel 4) and the fused max (hbp_spmv.cu, kernel 3).
-// The partials sum kernels (kernels 5-6) run the same geometry with a body
-// of their own and share its checks and dispatch (prepare_rows,
-// HBP_DISPATCH_WR).
+// The tile-row kernel of the SpMM kernels for Hopper (sm_90a): the fused
+// sum (hbp_spmv.cu, kernel 2), the fused max (kernel 3) and the partials
+// max (hbp_partials.cu, kernel 4).  The partials sum kernels (kernels 5-6)
+// run the same geometry with a body of their own and share its checks and
+// dispatch (prepare_rows, HBP_DISPATCH_WR).
 //
 // A thread folds `R` consecutive rows and `W` columns (W = 4: one float4
-// of each x row it gathers, float4 stores; W = 1: the scalar-column path)
-// of the tiles of one item under a monoid of hbp_chain.cuh.  An item is
-// one tile (the partials max: out[t, g, c] is tile t's row g) or one
-// chunk of a row-group run (the fused max: tiles [chunk_start[i],
+// of each x row it gathers, float4 stores; W = 2: float2, for the fused
+// sum at an even k that is not a multiple of 4; W = 1: the scalar-column
+// path) of the tiles of one item under a monoid of hbp_chain.cuh.  An
+// item is one tile (the partials max: out[t, g, c] is tile t's row g) or
+// one chunk of a row-group run (the fused kernels: tiles [chunk_start[i],
 // chunk_start[i + 1]), at most ops.RUN_CHUNK of them, written to the row
 // group's output row, or to the chunk buffer row ~chunk_dest[i] for a
 // chunk of a split run).  An item's tile_threads = slab * group / R
 // threads are (row block, column unit), the unit fastest; a block of
 // `block` threads holds block / tile_threads items, and blockIdx.y picks
 // the slab of column units of wider k.  The wrapper picks the geometry
-// (hbp_spmv.py partials_geometry); prepare_rows checks it.
+// (hbp_spmv.py fused_sum_geometry, partials_geometry); prepare_rows
+// checks it.
 //
 // * A thread keeps its R x W accumulators across the item's tiles, so an
 //   item's x rows are gathered on one SM: the slots that repeat an x row
-//   hit L1 rather than L2, and a gather moves a whole 16-byte column quad.
+//   hit L1 rather than L2, and a gather moves W columns at once (a warp
+//   of one row reads 32 * 4 * W contiguous bytes of an x row): W
+//   multiply-adds a load.
 // * Tile rows are read as 16-byte vectors (int4 cols, float4 data) for
 //   lanes 8..128; the threads of a row block read the same addresses, so
 //   a load is a broadcast, not one fetch per thread.  Other lane counts
@@ -48,12 +52,17 @@
 
 namespace hbp {
 
-// The thread's W columns of one x row: W = 1, or W = 4 read as a float4.
+// The thread's W columns of one x row: W = 1, W = 2 read as a float2, or
+// W = 4 read as a float4.
 template <int W>
 __device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[W]) {
-  static_assert(W == 1 || W == 4, "a thread owns 1 or 4 columns");
+  static_assert(W == 1 || W == 2 || W == 4, "a thread owns 1, 2 or 4 columns");
   if constexpr (W == 1) {
     v[0] = __ldg(p);
+  } else if constexpr (W == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
   } else {
     const float4 f = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = f.x;
@@ -67,6 +76,8 @@ template <int W>
 __device__ __forceinline__ void store_cols(float* p, const float (&v)[W]) {
   if constexpr (W == 1) {
     __stcs(p, v[0]);
+  } else if constexpr (W == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
   } else {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   }
@@ -192,13 +203,17 @@ cudaError_t launch_rows_wr(const float* data, const int* cols, const int* colblo
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+inline bool aligned16(const void* p) { return aligned(p, 16); }
 
 // Checks that the caller's geometry (width, rows, slab, block, grid) is
 // one a tile-row kernel (hbp_rows_kernel here, the partials sum kernel of
 // hbp_partials.cu) can run safely over n_items items: it covers every item
-// and column, and the vector path's pointers (y may be null) are 16-byte
-// aligned; then selects the device.
+// and column, and the vector paths' pointers (y may be null) are aligned
+// to the W floats a thread loads and stores (16 bytes at W = 4, 8 at
+// W = 2); then selects the device.
 inline cudaError_t prepare_rows(const float* data, const int* cols, const float* x,
                                 const float* partial, const float* y, int n_items,
                                 int group, int lane, int col_block, int k, int width,
@@ -209,7 +224,9 @@ inline cudaError_t prepare_rows(const float* data, const int* cols, const float*
       block % (slab * (group / rows)) != 0 || grid_x < 0 || grid_y <= 0 ||
       grid_y > 65535 || !aligned16(data) || !aligned16(cols))
     return cudaErrorInvalidValue;
-  if (width > 1 && (k % width != 0 || !aligned16(x) || !aligned16(partial) || !aligned16(y)))
+  const int unit = 4 * width;  // bytes of a thread's column unit
+  if (width > 1 && (k % width != 0 || !aligned(x, unit) || !aligned(partial, unit) ||
+                    !aligned(y, unit)))
     return cudaErrorInvalidValue;
   const int tile_threads = slab * (group / rows);
   if (static_cast<int64_t>(grid_x) * (block / tile_threads) < n_items ||
@@ -218,7 +235,8 @@ inline cudaError_t prepare_rows(const float* data, const int* cols, const float*
   return cudaSetDevice(device);
 }
 
-// Returns LAUNCH(W, R) for the columns (width) and rows a thread owns.
+// Returns LAUNCH(W, R) for the columns (width) and rows a thread owns:
+// float4 or scalar columns, 1 to 8 rows (the max kernels, the partials sum).
 #define HBP_DISPATCH_WR(width, rows, LAUNCH) \
   switch ((width) * 16 + (rows)) {           \
     case 0x11: return LAUNCH(1, 1);          \
@@ -232,10 +250,23 @@ inline cudaError_t prepare_rows(const float* data, const int* cols, const float*
     default: return cudaErrorInvalidValue;   \
   }
 
+// The same for the fused sum, whose geometry (hbp_spmv.py
+// fused_sum_geometry) also takes float2 columns and at most 2 rows.
+#define HBP_DISPATCH_SUM_WR(width, rows, LAUNCH) \
+  switch ((width) * 16 + (rows)) {               \
+    case 0x11: return LAUNCH(1, 1);              \
+    case 0x12: return LAUNCH(1, 2);              \
+    case 0x21: return LAUNCH(2, 1);              \
+    case 0x22: return LAUNCH(2, 2);              \
+    case 0x41: return LAUNCH(4, 1);              \
+    case 0x42: return LAUNCH(4, 2);              \
+    default: return cudaErrorInvalidValue;       \
+  }
+
 // Launches hbp_rows_kernel over n_items items in the caller's geometry,
 // checked by prepare_rows.  y is unused (may be null) unless CHUNKS.  A
 // masked monoid skips masked slots' gathers where the rows of a warp are
-// uniform (slab a multiple of 32).
+// uniform (slab a multiple of 32).  Only the sum (unmasked) takes W = 2.
 template <class Op, bool CHUNKS>
 cudaError_t launch_rows(const float* data, const int* cols, const int* colblock,
                         const int* chunk_start, const int* chunk_dest, const float* x,
@@ -254,7 +285,11 @@ cudaError_t launch_rows(const float* data, const int* cols, const int* colblock,
   launch_rows_wr<W, R, Op, CHUNKS>(data, cols, colblock, chunk_start, chunk_dest, x,    \
                                    partial, y, n_items, group, lane, col_block, k, slab, \
                                    tile_threads, skip, grid, block, s)
-  HBP_DISPATCH_WR(width, rows, HBP_WR)
+  if constexpr (Op::kMasked) {
+    HBP_DISPATCH_WR(width, rows, HBP_WR)
+  } else {
+    HBP_DISPATCH_SUM_WR(width, rows, HBP_WR)
+  }
 #undef HBP_WR
 }
 

@@ -32,35 +32,39 @@
 //     B. hbp_fold_kernel (hbp_rows.cuh): one thread per (split run, g, c)
 //        left-folds the run's chunk partials in chunk order into y
 //        (__fadd_rn, or the NaN-carrying max).
-//   A is hbp_chunk_kernel for the sum (one thread per (chunk, g, c)) and
-//   the tile-row kernel of hbp_rows.cuh for the max (kernel 3): a
-//   chunk's threads are (row block, column unit), R rows and 4 columns
-//   (a float4 of each x row) or 1 a thread, in the launch geometry the
-//   wrapper picks (hbp_spmv.py partials_geometry), so a chunk's x rows are
-//   gathered on one SM (and masked slots skip their gather where a warp's
-//   threads share their rows: k >= 128, or k >= 32 on scalar columns).
+//   A of the SpMM kernels is the tile-row kernel of hbp_rows.cuh, under
+//   SumOp (kernel 2) or MaxOp (kernel 3): a chunk's threads are (row
+//   block, column unit), R rows and W columns a thread (W = 4: a float4 of
+//   each x row; W = 2: a float2; W = 1: one column), in the launch
+//   geometry the wrapper picks (hbp_spmv.py fused_sum_geometry for the
+//   sum: W from k and the operands' alignment; partials_geometry for the
+//   max: W = 4 or 1), so a chunk's x rows are gathered on one SM (the max
+//   skips masked slots' gathers where a warp's threads share their rows:
+//   k >= 128, or k >= 32 on scalar columns; the sum skips none).  A of
+//   the SpMV (kernel 1) is hbp_chunk_kernel, one thread per
+//   (chunk, g) on the lane chain of hbp_chain.cuh, which loads the next
+//   tile row while this row's gathers are in flight (PERF.md: why kernel
+//   1 keeps it); the wrapper of the sum SpMM launches it at k = 1.
 //   Two launches rather than one with per-run arrival counters, which
 //   would need a fence and a reset per run and a counter array shared by
 //   every launch on the tiles.  The fold is cheap: on m4_kron16 (RUN_CHUNK
 //   32, 1,216 split runs) it adds 0.008, 0.012 and 0.022 ms to chains of
 //   0.048, 0.083 and 0.965 ms at k = 1, 8 and 128 (H100 SXM, 700 W;
 //   scripts/time_fused.py, PERF.md).
-// * One accumulation order for every width (sum).  The chunk boundaries
-//   depend on the tiles alone, each chunk is one __fmaf_rn chain over its tiles
-//   in stream order and lanes in order, and the fold order is the chunk
-//   order; SpMV is the same template at k = 1.  So SpMV(x) is bitwise
-//   column c of SpMM(X) whenever X[:, c] = x, at any k and any zero
-//   padding of k: a batched serving answer equals the one-vector answer.
-//   A run of one chunk gets exactly the bits of one chain over its run.
-// * Loads.  For lanes 8..128 each tile row is read as 16-byte vectors
-//   (int4 cols, float4 data) and the next step's row is loaded while this
-//   step's x gathers are in flight (vec_sum_chain); other lane counts run
-//   the scalar chain (scalar_sum_chain).  Both are compile-time
+// * One accumulation order for every width and geometry (sum).  The chunk
+//   boundaries depend on the tiles alone, each output of a chunk is one
+//   __fmaf_rn chain from 0 over its tiles in stream order and lanes in
+//   order (a thread's R x W accumulators are independent chains), and the
+//   fold order is the chunk order; kernel 1 runs the same chain at k = 1.
+//   So SpMV(x) is bitwise column c of SpMM(X) whenever X[:, c] = x, at any
+//   k, column width and zero padding of k: a batched serving answer equals
+//   the one-vector answer.  A run of one chunk gets exactly the bits of one
+//   chain over its run.  Padded slots stay in the chain (0 * x[col 0], as
+//   on the TPU): skipping their gathers would change the answer where x is
+//   not finite.
+// * Tile rows are read as 16-byte vectors (int4 cols, float4 data) for
+//   lanes 8..128, other lane counts as scalars; compile-time
 //   specialisations.
-// * Sum output elements are flattened as (chunk, g, c), c fastest: for small k
-//   several chunks share one block of threads, for wide k one chunk spans
-//   several blocks, and neighbouring threads read neighbouring columns of
-//   an x row.
 // * Max: exact in any order, so the chunks and the fold give the bits of
 //   one max over the run; a NaN product of a live slot reaches y.
 //
@@ -71,8 +75,8 @@
 // is read straight from global memory: its rows are re-read by every tile
 // that touches them and mostly hit the 50 MB L2.  The chunk buffer adds
 // 2 * n_split_chunks * group * k * 4 bytes, a small share of the partials
-// kernels' per-tile buffer.  Staging x segments in shared memory and
-// reusing tile rows across columns are left to measured follow-up work.
+// kernels' per-tile buffer.  Staging x segments in shared memory is left
+// to measured follow-up work.
 
 #include "hbp_rows.cuh"
 
@@ -80,18 +84,17 @@ namespace {
 
 using hbp::kThreads;
 
-// Phase A of the sum: one chain per (chunk, g, c).  K1 = true is the SpMV
-// entry: k fixed at 1, otherwise the same code.
-template <int LANE, bool K1>
+// Phase A of the SpMV (kernel 1): one chain per (chunk, g, c) of an x
+// [n_x, k], launched at k = 1 (hbp_chain.cuh: why k is not a constant).
+template <int LANE>
 __global__ void __launch_bounds__(kThreads) hbp_chunk_kernel(
     const float* __restrict__ data, const int* __restrict__ cols,
     const int* __restrict__ colblock, const int* __restrict__ chunk_start,
     const int* __restrict__ chunk_dest, const float* __restrict__ x,
     float* __restrict__ partial, float* __restrict__ y, int64_t n_out, int group,
-    int lane, int col_block, int k_rt) {
+    int lane, int col_block, int k) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_out) return;
-  const int k = K1 ? 1 : k_rt;
   const int64_t per_chunk = static_cast<int64_t>(group) * k;
   const int64_t i = e / per_chunk;
   const int rem = static_cast<int>(e - i * per_chunk);
@@ -112,32 +115,27 @@ __global__ void __launch_bounds__(kThreads) hbp_chunk_kernel(
   out[rem] = acc;
 }
 
-template <bool K1>
-int launch_sum(const float* data, const int* cols, const int* colblock,
-               const int* chunk_start, const int* chunk_dest, const int* run_chunk,
-               const int* split_run, const int* run_rowgroup, const float* x,
-               float* partial, float* y, int n_chunks, int n_split, int group,
-               int lane, int col_block, int k, int device, void* stream) {
-  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks)
+// Phase A on the tile-row walk of hbp_rows.cuh under Op (the sum, kernel
+// 2, or the max, kernel 3), in the caller's geometry, then phase B.
+template <class Op>
+int launch_fused(const float* data, const int* cols, const int* colblock,
+                 const int* chunk_start, const int* chunk_dest, const int* run_chunk,
+                 const int* split_run, const int* run_rowgroup, const float* x,
+                 float* partial, float* y, int n_chunks, int n_split, int group, int lane,
+                 int col_block, int k, int width, int rows, int slab, int block, int grid_x,
+                 int grid_y, int device, void* stream) {
+  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks || k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_out = static_cast<int64_t>(n_chunks) * group * k;
   const int64_t n_fold = static_cast<int64_t>(n_split) * group * k;
-  dim3 grid, fold_grid;
-  cudaError_t ready =
-      hbp::prepare_launch(n_out, group, lane, col_block, k, device, &grid);
-  if (ready == cudaSuccess) ready = hbp::grid_for(n_fold, &fold_grid);
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HBP_LAUNCH(L)                                                            \
-  hbp_chunk_kernel<L, K1><<<grid, kThreads, 0, s>>>(                             \
-      data, cols, colblock, chunk_start, chunk_dest, x, partial, y, n_out, group, \
-      lane, col_block, k)
-  HBP_DISPATCH_LANE(lane, HBP_LAUNCH)
-#undef HBP_LAUNCH
-  cudaError_t err = cudaGetLastError();
+  dim3 fold_grid;
+  cudaError_t err = hbp::grid_for(n_fold, &fold_grid);
+  if (err == cudaSuccess)
+    err = hbp::launch_rows<Op, true>(data, cols, colblock, chunk_start, chunk_dest, x,
+                                     partial, y, n_chunks, group, lane, col_block, k, width,
+                                     rows, slab, block, grid_x, grid_y, device, stream);
   if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
-  hbp::hbp_fold_kernel<K1, hbp::SumOp><<<fold_grid, kThreads, 0, s>>>(
+  hbp::hbp_fold_kernel<false, Op><<<fold_grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -154,22 +152,43 @@ int hbp_spmv_fused_launch(const float* data, const int* cols, const int* colbloc
                           const int* run_rowgroup, const float* x, float* partial,
                           float* y, int n_chunks, int n_split, int group, int lane,
                           int col_block, int device, void* stream) {
-  return launch_sum<true>(data, cols, colblock, chunk_start, chunk_dest, run_chunk,
-                          split_run, run_rowgroup, x, partial, y, n_chunks, n_split,
-                          group, lane, col_block, 1, device, stream);
+  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_out = static_cast<int64_t>(n_chunks) * group;
+  const int64_t n_fold = static_cast<int64_t>(n_split) * group;
+  dim3 grid, fold_grid;
+  cudaError_t ready = hbp::prepare_launch(n_out, group, lane, col_block, device, &grid);
+  if (ready == cudaSuccess) ready = hbp::grid_for(n_fold, &fold_grid);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  if (n_out == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define HBP_LAUNCH(L)                                                                   \
+  hbp_chunk_kernel<L><<<grid, kThreads, 0, s>>>(data, cols, colblock, chunk_start,     \
+                                                chunk_dest, x, partial, y, n_out, group, \
+                                                lane, col_block, 1)
+  HBP_DISPATCH_LANE(lane, HBP_LAUNCH)
+#undef HBP_LAUNCH
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
+  hbp::hbp_fold_kernel<true, hbp::SumOp><<<fold_grid, kThreads, 0, s>>>(
+      run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // y: f32[n_rowgroups, group, k], zero-filled by the caller; x: f32[n_x, k];
-// partial: f32[n_split_chunks, group, k], uninitialised.
+// partial: f32[n_split_chunks, group, k], uninitialised; the launch geometry
+// of fused_sum_geometry (hbp_spmv.py) over the n_chunks chunks.
 int hbp_spmm_fused_launch(const float* data, const int* cols, const int* colblock,
                           const int* chunk_start, const int* chunk_dest,
                           const int* run_chunk, const int* split_run,
                           const int* run_rowgroup, const float* x, float* partial,
                           float* y, int n_chunks, int n_split, int group, int lane,
-                          int col_block, int k, int device, void* stream) {
-  return launch_sum<false>(data, cols, colblock, chunk_start, chunk_dest, run_chunk,
-                           split_run, run_rowgroup, x, partial, y, n_chunks, n_split,
-                           group, lane, col_block, k, device, stream);
+                          int col_block, int k, int width, int rows, int slab, int block,
+                          int grid_x, int grid_y, int device, void* stream) {
+  return launch_fused<hbp::SumOp>(data, cols, colblock, chunk_start, chunk_dest, run_chunk,
+                                  split_run, run_rowgroup, x, partial, y, n_chunks, n_split,
+                                  group, lane, col_block, k, width, rows, slab, block, grid_x,
+                                  grid_y, device, stream);
 }
 
 // y: f32[n_rowgroups, group, k], filled with -inf by the caller; x: f32[n_x, k];
@@ -183,20 +202,10 @@ int hbp_spmm_fused_max_launch(const float* data, const int* cols, const int* col
                               int col_block, int k, int width, int rows, int slab,
                               int block, int grid_x, int grid_y, int device,
                               void* stream) {
-  if (n_chunks < 0 || n_split < 0 || n_split > n_chunks || k <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_fold = static_cast<int64_t>(n_split) * group * k;
-  dim3 fold_grid;
-  cudaError_t err = hbp::grid_for(n_fold, &fold_grid);
-  if (err == cudaSuccess)
-    err = hbp::launch_rows<hbp::MaxOp, true>(
-        data, cols, colblock, chunk_start, chunk_dest, x, partial, y, n_chunks, group, lane,
-        col_block, k, width, rows, slab, block, grid_x, grid_y, device, stream);
-  if (err != cudaSuccess || n_fold == 0) return static_cast<int>(err);
-  hbp::hbp_fold_kernel<false, hbp::MaxOp><<<fold_grid, kThreads, 0,
-                                            static_cast<cudaStream_t>(stream)>>>(
-      run_chunk, split_run, chunk_dest, run_rowgroup, partial, y, n_fold, group, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fused<hbp::MaxOp>(data, cols, colblock, chunk_start, chunk_dest, run_chunk,
+                                  split_run, run_rowgroup, x, partial, y, n_chunks, n_split,
+                                  group, lane, col_block, k, width, rows, slab, block, grid_x,
+                                  grid_y, device, stream);
 }
 
 }  // extern "C"

@@ -29,9 +29,14 @@ The four fused wrappers walk the chunk index of
 ``ops.RUN_CHUNK`` tiles, and the runs cut into several chunks are folded
 in chunk order by a second kernel of the same launch call, through a
 chunk buffer ``[n_split_chunks, group(, k)]`` that the wrapper allocates.
-The max kernels give each chunk up to a block of threads, each one row
+The SpMM kernels give each chunk up to a block of threads, each one row
 and a float4 column quad (or one column) at group 8, in the launch
-geometry of :func:`partials_geometry` over the chunks.
+geometry of :func:`partials_geometry` over the chunks; the sum also takes
+float2 column pairs (:func:`fused_sum_geometry`: the column width follows
+k and the operands' alignment), and counts its launches by that width in
+the obs counter ``kernels.fused_sum_launches{width}``.  The SpMV keeps one
+thread per (chunk, row), and the sum SpMM at k = 1 launches it: the same
+bits as the walk, in less time at one column.
 
 The two-phase kernels (``csrc/hbp_partials.cu``) return one partial block
 per tile, ``[n_tiles, group(, k)]``, and leave the combine over each row
@@ -81,11 +86,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
+
 from . import ref as _ref
 
 __all__ = [
     "PartialsGeometry",
     "partials_geometry",
+    "column_width",
+    "fused_sum_rows",
+    "fused_sum_geometry",
     "hbp_spmv_fused",
     "hbp_spmm_fused",
     "hbp_spmm_fused_max",
@@ -232,7 +242,7 @@ CHUNK_ROWS = 1
 class PartialsGeometry:
     """Launch geometry of the tile-row kernels (``csrc/hbp_rows.cuh``,
     ``csrc/hbp_partials.cu``): the partials kernels, whose items are tiles,
-    and the fused max, whose items are chunks of row-group runs.
+    and the fused SpMM kernels, whose items are chunks of row-group runs.
 
     A thread computes ``width`` consecutive columns (one column unit) of
     ``rows`` consecutive rows of one item.  An item's ``tile_threads`` =
@@ -283,18 +293,64 @@ def partials_geometry(n_tiles: int, group: int, k: int, aligned: bool,
         rows = 8
         while rows > 1 and (group % rows or slab * group < TILE_THREADS * rows):
             rows //= 2
+    return _fitted(n_tiles, group, k, width, rows, slab)
+
+
+def _fitted(n_items: int, group: int, k: int, width: int, rows: int,
+            slab: int) -> PartialsGeometry:
+    """:func:`_geometry` with ``slab`` cut to what one block holds."""
     slab = min(slab, THREADS * rows // group)
     if slab < 1 or group % rows:
         raise ValueError(f"tile-row kernels: group {group} does not fit a block "
                          f"at {rows} rows a thread")
-    return _geometry(n_tiles, group, k, width, rows, slab)
+    return _geometry(n_items, group, k, width, rows, slab)
+
+
+def column_width(k: int, alignment: int) -> int:
+    """The fused sum's columns a thread: 4 (float4 gathers and stores)
+    where k is a multiple of 4 and every operand ``alignment`` (bytes) a
+    multiple of 16; 2 (float2) where k is even and it is a multiple of 8
+    (GAT's heads of 250); else 1."""
+    return next((w for w in (4, 2) if k % w == 0 and alignment % (4 * w) == 0), 1)
+
+
+def fused_sum_rows(k: int, width: int, group: int) -> int:
+    """Rows a thread of the fused sum takes of a chunk: two where k >= 32
+    on float4 quads or scalar columns (and ``group`` is even), else one.
+
+    Kernel 2's device µs on m4_kron16 (H100 SXM, 700 W; PERF.md), rows
+    1 / 2 / 4 a thread: float4 at k = 8 72 / 85 / 166, k = 40 185 / 180 /
+    234, k = 128 385 / 353 / 399, k = 256 744 / 667 / 730; float2 at
+    k = 250 1180 / 1238 / 1176; scalar columns at k = 129 1362 / 1202 /
+    1202.  Two rows give a thread twice the independent chains over one
+    broadcast tile-row load; below a warp's width of columns a chunk then
+    has too few threads."""
+    return 2 if k >= 32 and width != 2 and group % 2 == 0 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def fused_sum_geometry(n_chunks: int, group: int, k: int, alignment: int) -> PartialsGeometry:
+    """The launch of the fused sum (kernel 2) over ``n_chunks`` chunks of
+    ``group`` rows at width ``k``, its operands aligned to ``alignment``
+    bytes: :func:`column_width` columns and :func:`fused_sum_rows` rows a
+    thread.  Cached: the wrapper asks for it on every call."""
+    width = column_width(k, alignment)
+    return _fitted(n_chunks, group, k, width, fused_sum_rows(k, width, group),
+                   min(k // width, SLAB))
+
+
+def _alignment(operands) -> int:
+    """The largest of 16, 8 and 4 bytes that divides every operand's address."""
+    addresses = 0
+    for t in operands:
+        addresses |= t.data_ptr()
+    return 16 if addresses % 16 == 0 else 8 if addresses % 8 == 0 else 4
 
 
 def _default_geometry(dt, n_items: int, k: int, operands,
                       rows: Optional[int] = None) -> PartialsGeometry:
     """:func:`partials_geometry` for these operands (x and the output)."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
-    return partials_geometry(n_items, dt.data.shape[1], k, aligned, rows)
+    return partials_geometry(n_items, dt.data.shape[1], k, _alignment(operands) == 16, rows)
 
 
 def _fused_launch(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *tail: int) -> None:
@@ -312,6 +368,18 @@ def _fused_launch(fn_name: str, dt, x: torch.Tensor, y: torch.Tensor, *tail: int
     )
     counts = (dt.chunk_dest.shape[0], dt.split_run.shape[0])
     _launch("hbp_spmv", fn_name, tensors, dt, x, counts, *tail)
+
+
+def _fused_sum(dt, x: torch.Tensor, y: torch.Tensor,
+               geometry: Optional[PartialsGeometry] = None) -> PartialsGeometry:
+    """Launch the fused sum into ``y``: its chunk chains run the tile-row
+    kernel over the chunks in ``geometry`` (default: the one
+    :func:`fused_sum_geometry` picks for these operands); returns it."""
+    k = x.shape[1]
+    g = geometry or fused_sum_geometry(dt.chunk_dest.shape[0], dt.data.shape[1], k,
+                                       _alignment((x, y)))
+    _fused_launch("hbp_spmm_fused_launch", dt, x, y, k, *g.launch_args)
+    return g
 
 
 def _fused_max(dt, x: torch.Tensor, y: torch.Tensor,
@@ -369,7 +437,9 @@ def hbp_spmv_fused(dt, x: torch.Tensor) -> torch.Tensor:
 
 
 def hbp_spmm_fused(dt, x: torch.Tensor) -> torch.Tensor:
-    """Fused-combine HBP SpMM, hashed row order ``[n_rowgroups, group, k]``."""
+    """Fused-combine HBP SpMM, hashed row order ``[n_rowgroups, group, k]``:
+    the tile-row walk in :func:`fused_sum_geometry`, or at k = 1 the SpMV's
+    chain (kernel 1)."""
     _check(dt, x, 2, "hbp_spmm_fused")
     if x.device.type == "cpu":
         return hbp_spmm_fused_plain(dt, x)
@@ -378,8 +448,14 @@ def hbp_spmm_fused(dt, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((dt.n_rowgroups, group, k), dtype=torch.float32, device=x.device)
     if dt.run_rowgroup.shape[0] == 0 or k == 0:
         return y
-    _fused_launch("hbp_spmm_fused_launch", dt, x, y, k)
+    if k == 1:
+        # kernel 1's chain: the walk's bits, in less time at one column
+        _fused_launch("hbp_spmv_fused_launch", dt, x[:, 0], y[..., 0])
+        width = 1
+    else:
+        width = _fused_sum(dt, x, y).width
     hbp_spmm_fused.launches += 1
+    obs.counter("kernels.fused_sum_launches", width=width).inc()
     return y
 
 

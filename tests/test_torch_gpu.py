@@ -8,6 +8,8 @@ kernel fuses each multiply-add), each max kernel exactly (the max is exact
 in any order), and the bitwise invariants the serving engine relies on
 are checked on the card.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -310,13 +312,83 @@ def test_hub_fused_launch_counters_count_launches_only(cuda):
     assert (hbp_spmv_fused.launches, hbp_spmm_fused.launches) == (before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("lane", [8, 128, 12])
+def test_fused_sum_column_widths_on_hub_runs(cuda, lane):
+    """Kernel 2 on the tile-row walk at the GCN and GAT cells' widths, on
+    split runs: float4 columns (k = 40, 256), float2 (k = 250, and k = 256
+    with x 8 bytes past a 16-byte boundary) and scalar columns (x one float
+    past it) against the plain version; the three paths give one x the
+    same bits, SpMV is bitwise each width's column, and the rows of row
+    groups with no tiles come out 0."""
+    tiles, dt = _hub(cuda, lane)
+    empty = torch.as_tensor(np.setdiff1d(np.arange(tiles.n_rowgroups), tiles.rowgroup),
+                            device=cuda)
+    assert empty.numel()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(dt.shape[1], device=cuda, generator=g)
+    y = hbp_spmv_fused(dt, x)
+    for k in (40, 250, 256):
+        X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+        X[:, k // 2] = x
+        Y = hbp_spmm_fused(dt, X)
+        _close(Y, hbp_spmm_fused_plain(dt, X))
+        assert torch.equal(Y[..., k // 2], y), k
+        assert bool(torch.all(Y[empty] == 0)), k
+        for floats in (2, 1):
+            assert torch.equal(hbp_spmm_fused(dt, _offset(X, floats)), Y), (k, floats)
+
+
+def test_fused_sum_counts_its_launches_by_column_width(cuda, monkeypatch):
+    """``kernels.fused_sum_launches{width}`` counts each launch of kernel 2
+    once, under the column width the launch took, beside ``launches``; at
+    k = 1 the launch is kernel 1's chain (the walk is not entered), with
+    kernel 1's bits."""
+    from repro_torch import obs
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    _, dt = _hub(cuda, 8)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(dt.shape[1], device=cuda, generator=g)
+    walk = K._fused_sum
+
+    def walk_above_one_column(dt_, x_, *args, **kwargs):
+        assert x_.shape[1] > 1, "k = 1 entered the walk"
+        return walk(dt_, x_, *args, **kwargs)
+
+    monkeypatch.setattr(K, "_fused_sum", walk_above_one_column)
+    assert torch.equal(hbp_spmm_fused(dt, x[:, None].contiguous())[..., 0],
+                       hbp_spmv_fused(dt, x))
+    cases = ((256, 0, 4), (40, 0, 4), (250, 0, 2), (256, 2, 2), (256, 1, 1), (3, 0, 1),
+             (1, 0, 1), (1, 1, 1))
+    obs.reset()
+    obs.enable()
+    try:
+        for k, floats, width in cases:
+            X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
+            X = _offset(X, floats) if floats else X
+            before = [obs.registry().value("kernels.fused_sum_launches", width=w)
+                      for w in (1, 2, 4)]
+            launches = hbp_spmm_fused.launches
+            hbp_spmm_fused(dt, X)
+            hbp_spmm_fused_plain(dt, X)
+            after = [obs.registry().value("kernels.fused_sum_launches", width=w)
+                     for w in (1, 2, 4)]
+            want = [int(w == width) for w in (1, 2, 4)]
+            assert [a - b for a, b in zip(after, before)] == want, (k, floats)
+            assert hbp_spmm_fused.launches == launches + 1
+    finally:
+        obs.disable()
+        obs.reset()
+
+
 # --- the partials sum kernels' vector and scalar-column paths ---------------
 
 
-def _offset(x):
-    """``x``'s values in storage that starts one float past a 16-byte boundary."""
-    y = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape).copy_(x)
-    assert y.is_contiguous() and y.data_ptr() % 16
+def _offset(x, floats=1):
+    """``x``'s values in storage that starts ``floats`` floats past a
+    16-byte boundary."""
+    y = torch.empty(x.numel() + floats, device=x.device)[floats:].view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4 * floats
     return y
 
 

@@ -696,10 +696,11 @@ def test_partials_geometry_covers_every_output_once(k, aligned):
 # --- the max kernels' launches in that geometry -------------------------------
 
 
-def _offset(x):
-    """``x``'s values in storage that starts one float past a 16-byte boundary."""
-    y = torch.empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
-    assert y.is_contiguous() and y.data_ptr() % 16
+def _offset(x, floats=1):
+    """``x``'s values in storage that starts ``floats`` floats past a
+    16-byte boundary (the CPU allocator's blocks are 64-byte aligned)."""
+    y = torch.empty(x.numel() + floats)[floats:].view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4 * floats
     return y
 
 
@@ -740,3 +741,80 @@ def test_max_launch_geometry_writes_every_output_once(hub, monkeypatch, kernel, 
         assert y_rows.size == np.count_nonzero(dest >= 0)
         split_groups = dt.run_rowgroup.numpy()[dt.split_run.numpy()]
         assert dt.split_run.numel() and not np.isin(split_groups, y_rows).any()
+
+
+# --- the fused sum's launches on the tile-row walk (kernel 2) -----------------
+
+_ALIGNMENTS = {"aligned": 0, "offset8": 2, "offset4": 1}
+FUSED_SUM_KS = [1, 2, 3, 8, 40, 128, 129, 250, 256]
+
+
+def _sum_width(k, floats):
+    """The column width rule of the fused sum for x ``floats`` floats past a
+    16-byte boundary: 4 at k % 4 == 0 on 16 bytes, 2 at even k on 8, else 1."""
+    if k % 4 == 0 and floats == 0:
+        return 4
+    return 2 if k % 2 == 0 and floats in (0, 2) else 1
+
+
+@pytest.mark.parametrize("alignment", list(_ALIGNMENTS))
+@pytest.mark.parametrize("k", FUSED_SUM_KS)
+def test_fused_sum_launch_geometry_writes_every_output_once(hub, monkeypatch, k, alignment):
+    """The geometry ``_fused_sum`` hands its launcher (``hbp_spmm_fused``'s
+    at k > 1; at k = 1 the wrapper runs kernel 1's chain) covers every
+    (chunk, g, c) exactly once, at the column width of the rule (4, 2 or
+    1 by k and x's alignment) and the rows a thread of its rule; the
+    chunks write each one-chunk run's row group and each chunk-buffer row
+    once, and no row group of a split run.  The max kernels (3-4) keep
+    their own width rule on the same x."""
+    _, dt = hub
+    launched = []
+    monkeypatch.setattr(K, "_launch", lambda lib, fn, tensors, dt_, x, counts, *tail:
+                        launched.append((fn, counts, tail)))
+    floats = _ALIGNMENTS[alignment]
+    X = torch.randn(dt.shape[1], k, generator=torch.Generator().manual_seed(k))
+    X = _offset(X, floats) if floats else X
+    group = dt.data.shape[1]
+    geo_returned = K._fused_sum(dt, X, torch.zeros((dt.n_rowgroups, group, k)))
+    n_chunks = dt.chunk_dest.shape[0]
+    (fn, counts, tail), = launched
+    assert fn == "hbp_spmm_fused_launch" and counts == (n_chunks, dt.split_run.shape[0])
+    assert tail[0] == k
+    geo = PartialsGeometry(*tail[1:5], tuple(tail[5:]))
+    assert geo == geo_returned
+    assert geo.width == _sum_width(k, floats)
+    assert geo.rows == (2 if k >= 32 and geo.width != 2 else 1)
+    assert geo.block <= 256 and geo.block % (geo.slab * group // geo.rows) == 0
+    covered = _covered(geo, n_chunks, group, k)
+    hits = np.bincount(covered, minlength=n_chunks * group * k)
+    assert hits.size == n_chunks * group * k and np.all(hits == 1)
+    dest = dt.chunk_dest.numpy()
+    rows = dest[covered // (group * k)]
+    y_rows, buf_rows = np.unique(rows[rows >= 0]), np.unique(~rows[rows < 0])
+    np.testing.assert_array_equal(buf_rows, np.arange(dt.n_split_chunks))
+    assert y_rows.size == np.count_nonzero(dest >= 0)
+    split_groups = dt.run_rowgroup.numpy()[dt.split_run.numpy()]
+    assert dt.split_run.numel() and not np.isin(split_groups, y_rows).any()
+    # kernels 3-6 and the argmax: partials_geometry's rule, unchanged
+    for n_items, rows_ in ((n_chunks, K.CHUNK_ROWS), (dt.n_tiles, None)):
+        other = K._default_geometry(dt, n_items, k, (X,), rows_)
+        assert other.width == (4 if floats == 0 and k % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("alignment", [16, 8, 4])
+@pytest.mark.parametrize("k", FUSED_SUM_KS)
+def test_fused_sum_geometry_covers_every_output_once(k, alignment):
+    """:func:`fused_sum_geometry` at every group the tile-row kernel takes:
+    one thread per (chunk, row block, column unit), a block within 256
+    threads, the width of :func:`column_width` and the rows of
+    :func:`fused_sum_rows`."""
+    width = K.column_width(k, alignment)
+    assert width == _sum_width(k, {16: 0, 8: 2, 4: 1}[alignment])
+    for group, n_chunks in itertools.product((8, 4, 12, 1, 64), (1, 37)):
+        geo = K.fused_sum_geometry(n_chunks, group, k, alignment)
+        assert (geo.width, geo.rows) == (width, K.fused_sum_rows(k, width, group))
+        assert geo.rows == (2 if k >= 32 and width != 2 and group % 2 == 0 else 1)
+        assert geo.block <= 256 and geo.block % (geo.slab * group // geo.rows) == 0
+        assert geo.grid[1] * geo.slab * geo.width >= k
+        hits = np.bincount(_covered(geo, n_chunks, group, k), minlength=n_chunks * group * k)
+        assert hits.size == n_chunks * group * k and np.all(hits == 1), (group, n_chunks)
