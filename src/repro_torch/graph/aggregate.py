@@ -16,8 +16,8 @@ columns over their threads).  :func:`make_aggregator` stages the tiles on
 the device once and returns a closure over them; :func:`plan_aggregator`
 serves a graph admitted to a :class:`~repro_torch.serving.registry.
 MatrixRegistry`.  Entry points run on the card unless the caller passes
-``device="cpu"``; the strategy defaults to the device's (the fused CUDA
-kernels on a card, the ``"stable"`` chain on the CPU), as the registry's
+``device="cpu"``; the strategy defaults to the device's
+(:func:`repro_torch.kernels.ops.default_strategy`), as the registry's
 does.
 
 :func:`make_diff_aggregator` and :func:`plan_diff_aggregator` are their
@@ -61,9 +61,7 @@ def _check_op(op: str) -> None:
 
 
 def _strategy(strategy: Optional[str], device: torch.device) -> str:
-    if strategy is None:
-        return "fused" if device.type == "cuda" else "stable"
-    return strategy
+    return ops.default_strategy(device) if strategy is None else strategy
 
 
 def aggregate(
@@ -125,14 +123,12 @@ def make_aggregator(
         if op == "mean" and degree is None:
             raise ValueError("op='mean' over prebuilt tiles needs degree=")
     dt = ops.device_tiles(tiles, device)  # staged once; every call reuses it
-    meta = dict(
-        strategy=_strategy(strategy, dt.device),
-        combine="max" if op == "max" else "sum",
-    )
+    strategy = _strategy(strategy, dt.device)
+    combine = "max" if op == "max" else "sum"
     div = mean_divisor(degree, tiles.shape[0], dt.device) if op == "mean" else None
 
     def agg(x) -> torch.Tensor:
-        y = ops.hbp_spmm(dt, x, **meta)
+        y = ops.hbp_spmm(dt, x, strategy=strategy, combine=combine)
         return y / div if div is not None else y
 
     return agg
@@ -223,13 +219,7 @@ def make_attention_aggregator(
     dev = ops.resolve_device(device)
     strategy = _strategy(strategy, dev)
     ops.check_strategy(strategy)
-
-    def stage(tiles):
-        meta = dict(n_rowgroups=tiles.n_rowgroups, n_rows=tiles.shape[0],
-                    col_block=tiles.cfg.col_block, strategy=strategy)
-        return ops.device_tiles(tiles, dev), meta
-
-    (dt, meta), (dt_T, meta_T) = stage(pair.tiles), stage(pair.tiles_T)
     maps = autodiff.attention_maps(adj, pair.tiles, pair.tiles_T, dev)
-    return autodiff.attention_aggregator(dt, dt_T, maps, meta, meta_T)
+    return autodiff.attention_aggregator(ops.device_tiles(pair.tiles, dev),
+                                         ops.device_tiles(pair.tiles_T, dev), maps, strategy)
 

@@ -95,7 +95,7 @@ class NodeClassifierTrainer:
     (A, Aᵀ) plan pairs — required for mini-batch cache reuse to pay off;
     training then runs on the registry's device with its strategy.
     Without one, ``device`` (default: the card) and ``strategy`` (default:
-    ``"fused"`` on the card, ``"stable"`` on the CPU) apply.
+    the device's, :func:`repro_torch.kernels.ops.default_strategy`) apply.
     """
 
     def __init__(
@@ -127,7 +127,7 @@ class NodeClassifierTrainer:
         self.registry = registry
         self.device = registry.device if registry is not None else ops.resolve_device(device)
         if strategy is None:
-            strategy = "fused" if self.device.type == "cuda" else "stable"
+            strategy = ops.default_strategy(self.device)
         ops.check_strategy(strategy)
         self.strategy = strategy
         self.mode = mode

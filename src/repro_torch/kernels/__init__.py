@@ -11,8 +11,6 @@ from . import autodiff, ops, ref
 from .autodiff import PairedTiles, diff_aggregator, hbp_transpose
 from .ops import (
     K_BUCKETS,
-    K_CHUNK,
-    K_TILINGS,
     DeviceTiles,
     bucket_k,
     device_tiles,
@@ -34,8 +32,6 @@ __all__ = [
     "hbp_spmv",
     "bucket_k",
     "K_BUCKETS",
-    "K_CHUNK",
-    "K_TILINGS",
     "PairedTiles",
     "hbp_transpose",
     "diff_aggregator",

@@ -269,12 +269,7 @@ class _ArgmaxSpmm(torch.autograd.Function):
 
 
 def argmax_spmm_diff(
-    dt: ops.DeviceTiles,
-    *,
-    n_rowgroups: Optional[int] = None,
-    n_rows: Optional[int] = None,
-    col_block: Optional[int] = None,
-    passes: int = 1,
+    dt: ops.DeviceTiles, *, passes: int = 1
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Differentiable max aggregation over staged tiles.
 
@@ -284,11 +279,6 @@ def argmax_spmm_diff(
     ``coeff * ȳ`` back to row ``idx``.  Ties route to the lowest column;
     rows with no live entry give 0 and pass no gradient.
     """
-    for name, given, staged in (("n_rowgroups", n_rowgroups, dt.n_rowgroups),
-                                ("n_rows", n_rows, dt.shape[0]),
-                                ("col_block", col_block, dt.col_block)):
-        if given is not None and given != staged:
-            raise ValueError(f"{name}={given} does not match the staged tiles ({staged})")
     return lambda x: _ArgmaxSpmm.apply(x, dt, passes)[0]
 
 
@@ -304,40 +294,27 @@ def mean_divisor(degree, n_rows: int, device=None) -> torch.Tensor:
     return d if device is None else d.to(device)
 
 
-def _spmm_meta(meta: dict) -> dict:
-    """The keywords of ``ops.hbp_spmm`` among a plan's or a tile set's
-    metadata."""
-    keys = ("n_rowgroups", "n_rows", "col_block", "strategy", "k_tiling")
-    return {key: meta[key] for key in keys if key in meta}
-
-
 def device_diff_aggregator(
     dt: ops.DeviceTiles,
     dt_T: Optional[ops.DeviceTiles],
-    meta: dict,
-    meta_T: Optional[dict],
     *,
+    strategy: str,
     op: str = "sum",
     degree=None,
     mode: str = "vjp",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Differentiable aggregation closure over already-staged tiles.
+    """Differentiable aggregation closure over already-staged tiles, whose
+    sum and mean launch ``strategy`` on both sides.
 
-    ``meta``/``meta_T`` are the keyword dicts :func:`repro_torch.kernels.
-    ops.hbp_spmm` takes beyond the tiles (``n_rowgroups``, ``n_rows``,
-    ``col_block``, ``strategy``, optionally ``k_tiling``).  ``dt_T`` may
-    be ``None`` for ``op="max"`` (its backward is a scatter, not a
-    transpose SpMM) and for ``mode="jvp"``.  This is the layer
+    ``dt_T`` may be ``None`` for ``op="max"`` (its backward is a scatter,
+    not a transpose SpMM) and for ``mode="jvp"``.  This is the layer
     :meth:`~repro_torch.serving.registry.MatrixPlan.diff_aggregator` and
     :func:`repro_torch.graph.aggregate.make_diff_aggregator` both sit on.
     """
     if mode not in DIFF_MODES:
         raise ValueError(f"unknown mode {mode!r} (expected one of {DIFF_MODES})")
     if op == "max":
-        return argmax_spmm_diff(
-            dt, n_rowgroups=meta.get("n_rowgroups"), n_rows=meta.get("n_rows"),
-            col_block=meta.get("col_block"),
-        )
+        return argmax_spmm_diff(dt)
     if op not in ("sum", "mean"):
         raise ValueError(f"unknown aggregation {op!r} (expected sum, mean or max)")
 
@@ -346,27 +323,23 @@ def device_diff_aggregator(
         if degree is None:
             raise ValueError("op='mean' needs the degree vector (degrees(adj))")
         div = mean_divisor(degree, dt.shape[0], dt.device)
-    kw = _spmm_meta(meta)
 
     def apply_A(x):
-        y = ops.hbp_spmm(dt, x, **kw)
+        y = ops.hbp_spmm(dt, x, strategy=strategy)
         return y / div if div is not None else y
 
     if mode == "jvp":
-        plain_kw = {**kw, "strategy": "stable", "k_tiling": "grid"}
-
         def plain_A(x):
-            y = ops.hbp_spmm(dt, x, **plain_kw)
+            y = ops.hbp_spmm(dt, x, strategy="stable")
             return y / div if div is not None else y
 
         return linear_spmm_jvp(apply_A, plain_A)
-    if dt_T is None or meta_T is None:
+    if dt_T is None:
         raise ValueError("mode='vjp' needs the transpose tiles (build with hbp_transpose)")
-    kw_T = _spmm_meta(meta_T)
 
     def apply_AT(g):
         g = g / div if div is not None else g
-        return ops.hbp_spmm(dt_T, g, **kw_T)
+        return ops.hbp_spmm(dt_T, g, strategy=strategy)
 
     return linear_spmm_vjp(apply_A, apply_AT)
 
@@ -391,8 +364,8 @@ def diff_aggregator(
     """Stage a :class:`PairedTiles` on ``device`` (default: the card) and
     return a differentiable aggregator.
 
-    The strategy defaults to the device's: the fused CUDA kernels on a
-    card, the ``"stable"`` chain on the CPU.  The graph-level entry with
+    The strategy defaults to the device's (:func:`repro_torch.kernels.ops.
+    default_strategy`).  The graph-level entry with
     CSR handling and degree defaulting is
     :func:`repro_torch.graph.aggregate.make_diff_aggregator`.  When the op
     never launches Aᵀ (see :func:`needs_transpose`) the transpose side is
@@ -401,19 +374,13 @@ def diff_aggregator(
     tiles, tiles_T = pair
     dev = ops.resolve_device(device)
     if strategy is None:
-        strategy = "fused" if dev.type == "cuda" else "stable"
+        strategy = ops.default_strategy(dev)
     ops.check_strategy(strategy)
-
-    def _meta(t: HBPTiles) -> dict:
-        return dict(n_rowgroups=t.n_rowgroups, n_rows=t.shape[0],
-                    col_block=t.cfg.col_block, strategy=strategy)
-
     stage_t = needs_transpose(op, mode) and tiles_T is not None
     return device_diff_aggregator(
         ops.device_tiles(tiles, dev),
         ops.device_tiles(tiles_T, dev) if stage_t else None,
-        _meta(tiles),
-        _meta(tiles_T) if stage_t else None,
+        strategy=strategy,
         op=op,
         degree=degree,
         mode=mode,
@@ -492,15 +459,14 @@ class _AttentionPlan(NamedTuple):
     dt: ops.DeviceTiles
     dt_T: ops.DeviceTiles
     maps: AttentionMaps
-    kw: dict  # ops.hbp_spmm's keywords on A
-    kw_T: dict  # and on Aᵀ
+    strategy: str
 
 
-def _per_head(tiles: List[ops.DeviceTiles], x: torch.Tensor, kw: dict) -> torch.Tensor:
+def _per_head(tiles: List[ops.DeviceTiles], x: torch.Tensor, strategy: str) -> torch.Tensor:
     """``[tiles[h] @ x_h]`` side by side, ``x_h`` the h-th of ``len(tiles)``
     equal column blocks of ``x``: one SpMM launch a head."""
     width = x.shape[1] // len(tiles)
-    return torch.cat([ops.hbp_spmm(t, x[:, h * width:(h + 1) * width], **kw)
+    return torch.cat([ops.hbp_spmm(t, x[:, h * width:(h + 1) * width], strategy=strategy)
                       for h, t in enumerate(tiles)], dim=1)
 
 
@@ -517,7 +483,7 @@ class _Attention(torch.autograd.Function):
             alpha = edge_softmax(s_src, s_dst, att.maps)
             tiles = rewritten_tiles(att.dt, att.maps.slot, alpha)
         with obs.span("agg.forward"):
-            y = _per_head(tiles, z, att.kw)
+            y = _per_head(tiles, z, att.strategy)
         ctx.save_for_backward(z, s_src, s_dst, alpha)
         ctx.att = att
         return y
@@ -532,7 +498,7 @@ class _Attention(torch.autograd.Function):
         with obs.span("agg.attention_backward"):
             tiles_T = rewritten_tiles(att.dt_T, maps.slot_T, alpha)
         with obs.span("agg.backward"):
-            dz = _per_head(tiles_T, dy, att.kw_T)
+            dz = _per_head(tiles_T, dy, att.strategy)
         with obs.span("agg.sddmm"):
             d_alpha = hbp_sddmm(maps.indptr, maps.cols, dy, z.contiguous(), heads)
         with obs.span("agg.attention_backward"):
@@ -545,14 +511,13 @@ class _Attention(torch.autograd.Function):
 
 
 def attention_aggregator(dt: ops.DeviceTiles, dt_T: ops.DeviceTiles, maps: AttentionMaps,
-                         meta: dict, meta_T: dict) -> Callable:
+                         strategy: str) -> Callable:
     """GAT's differentiable attention aggregation over staged tiles of A
     and Aᵀ (one tile set for a symmetric structure): ``agg(z, s_src,
     s_dst)`` with ``z`` ``[n, H * C]`` and the scores ``[n, H]`` returns
-    ``[n, H * C]``, head h's columns ``α_h z_h``.  ``meta`` / ``meta_T``
-    are the keywords of :func:`repro_torch.kernels.ops.hbp_spmm` beyond
-    the tiles, as for :func:`device_diff_aggregator`."""
-    att = _AttentionPlan(dt, dt_T, maps, _spmm_meta(meta), _spmm_meta(meta_T))
+    ``[n, H * C]``, head h's columns ``α_h z_h``, every SpMM launched
+    under ``strategy``."""
+    att = _AttentionPlan(dt, dt_T, maps, strategy)
 
     def agg(z, s_src, s_dst):
         if z.shape[1] % s_src.shape[1] or s_src.shape != s_dst.shape:

@@ -28,7 +28,7 @@ with no card present they raise rather than fall back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional, Tuple
+from typing import Literal, Tuple
 
 import numpy as np
 import torch
@@ -51,15 +51,13 @@ __all__ = [
     "hbp_spmm_bucketed",
     "bucket_k",
     "K_BUCKETS",
-    "K_CHUNK",
-    "K_TILINGS",
     "RUN_CHUNK",
     "STRATEGIES",
     "COMBINES",
     "check_strategy",
+    "default_strategy",
     "blocked_vector",
     "blocked_matrix",
-    "stream_passes",
     "modeled_launch_bytes",
 ]
 
@@ -67,15 +65,6 @@ __all__ = [
 # coalesced block to the next bucket so launch widths come from a small
 # set; beyond the top bucket widths round up to multiples of it.
 K_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
-
-# Width of one launch under the legacy ``k_tiling="loop"`` contract.
-K_CHUNK = 128
-
-# Launch contracts for wide k: "grid" is one launch for any k (the CUDA
-# kernel flattens (run, group, column) over its threads), "loop" a host
-# loop of K_CHUNK-wide launches.  Both names are kept so plans and cache
-# entries written under either stay valid; the two give the same bits.
-K_TILINGS = ("grid", "loop")
 
 # Most tiles one thread of the fused kernels walks: device_tiles cuts
 # every row group's run into chunks of at most this many tiles, and runs
@@ -261,33 +250,20 @@ def blocked_matrix(x: torch.Tensor, col_block: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, n_blocks * col_block - n)).reshape(n_blocks, col_block, k)
 
 
-def stream_passes(k: int, strategy: str, k_tiling: str) -> int:
-    """How many times one call walks the packed tile stream.
-
-    Every strategy reads the stream once for any k under ``"grid"`` (the
-    CUDA kernel serves all k columns in one launch; the torch paths chain
-    over the full width); ``"loop"`` reads it once per ``K_CHUNK``-wide
-    launch.
-    """
-    if k_tiling == "loop":
-        return max(1, -(-k // K_CHUNK))
-    return 1
-
-
-def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) -> int:
+def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str) -> int:
     """Modeled device-memory bytes one SpMM call moves (the bandwidth ledger).
 
     The tile stream (data f32 + cols i32 + the per-tile column block and
-    the run index) is paid once per stream pass; each stored slot gathers
-    one f32 of x per RHS column; the output block is written once.  Under
-    ``"partials"`` the per-tile partials buffer (``T * group * k`` f32) is
-    written by the kernel and read back by the combine.  The fused
-    kernels (sum and max alike) read the chunk index once per pass, and
-    write the chunk buffer of the split runs (``n_split_chunks * group *
-    k`` f32) and read it back once.  A model, not a measurement: it
-    assumes no cache reuse of the gathers.
+    the run index) is read once at any k: every strategy serves all k
+    columns in one pass.  Each stored slot gathers one f32 of x per RHS
+    column; the output block is written once.  Under ``"partials"`` the
+    per-tile partials buffer (``T * group * k`` f32) is written by the
+    kernel and read back by the combine.  The fused kernels (sum and max
+    alike) read the chunk index once, and write the chunk buffer of the
+    split runs (``n_split_chunks * group * k`` f32) and read it back
+    once.  A model, not a measurement: it assumes no cache reuse of the
+    gathers.
     """
-    passes = stream_passes(k, strategy, k_tiling)
     stream = dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes
     stream += dt.run_start.nbytes + dt.run_rowgroup.nbytes
     k = max(k, 1)
@@ -298,40 +274,39 @@ def modeled_launch_bytes(dt: DeviceTiles, k: int, strategy: str, k_tiling: str) 
     if strategy == "partials":
         extra = 2 * dt.n_tiles * group * k * 4
     elif strategy == "fused":
-        extra = passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
-    return int(passes * stream + gathers + out + extra)
+        extra = dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
+    return int(stream + gathers + out + extra)
 
 
 def _record_launch(
-    dt: DeviceTiles, k: int, *, op: str, strategy: str, k_tiling: str, combine: str = "sum",
-    passes: Optional[int] = None,
+    dt: DeviceTiles, k: int, *, op: str, strategy: str, combine: str = "sum", passes: int = 1,
 ) -> None:
     """Gated kernel-traffic accounting: one bump per entry-point call.
-    ``passes`` overrides the tile-stream passes of the call (the argmax's
-    one or three)."""
+    ``passes`` is how many times the call walks the tile stream (the
+    argmax's oracle walks it three times)."""
     if not obs.enabled():
         return
-    obs.counter(
-        "kernels.launches", op=op, strategy=strategy, k_tiling=k_tiling, combine=combine
-    ).inc()
-    n_passes = stream_passes(k, strategy, k_tiling) if passes is None else passes
-    obs.counter("kernels.traversals").inc(n_passes)
-    obs.counter("kernels.bytes_modeled").inc(
-        modeled_launch_bytes(dt, k, strategy, k_tiling))
-    obs.counter("kernels.k_tiling", choice=k_tiling).inc()
+    obs.counter("kernels.launches", op=op, strategy=strategy, combine=combine).inc()
+    obs.counter("kernels.traversals").inc(passes)
+    obs.counter("kernels.bytes_modeled").inc(modeled_launch_bytes(dt, k, strategy))
     obs.histogram("kernels.launch_k").observe(k)
 
 
-def check_strategy(strategy: str, k_tiling: str = "grid") -> None:
-    """Raise for a strategy or contract this package does not serve."""
+def check_strategy(strategy: str) -> None:
+    """Raise for a strategy this package does not serve."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (expected one of {STRATEGIES})")
-    if k_tiling not in K_TILINGS:
-        raise ValueError(f"unknown k_tiling {k_tiling!r} (expected one of {K_TILINGS})")
 
 
-def _resolve(tiles, x, device, n_rowgroups, n_rows, col_block) -> Tuple[DeviceTiles, torch.Tensor]:
-    """Staged tiles and x as f32 on their device; checks the metadata."""
+def default_strategy(device) -> str:
+    """The strategy every layer above the entry points serves unless told
+    otherwise: the fused CUDA kernels on a card, the batch-width-invariant
+    ``"stable"`` chain on the CPU."""
+    return "fused" if torch.device(device).type == "cuda" else "stable"
+
+
+def _resolve(tiles, x, device) -> Tuple[DeviceTiles, torch.Tensor]:
+    """Staged tiles and x as f32 on their device."""
     if isinstance(tiles, HBPTiles):
         dt = device_tiles(tiles, device)
     elif isinstance(tiles, DeviceTiles):
@@ -342,13 +317,6 @@ def _resolve(tiles, x, device, n_rowgroups, n_rows, col_block) -> Tuple[DeviceTi
             raise ValueError(f"tiles are staged on {dt.device}, not {device}")
     else:
         raise TypeError(f"expected HBPTiles or DeviceTiles, got {type(tiles).__name__}")
-    for name, given, staged in (
-        ("n_rowgroups", n_rowgroups, dt.n_rowgroups),
-        ("n_rows", n_rows, dt.shape[0]),
-        ("col_block", col_block, dt.col_block),
-    ):
-        if given is not None and given != staged:
-            raise ValueError(f"{name}={given} does not match the staged tiles ({staged})")
     x = torch.as_tensor(x, dtype=torch.float32)
     if x.device != dt.device:
         if x.device.type == "cpu" and dt.device.type == "cuda":
@@ -367,23 +335,17 @@ def hbp_spmv(
     x,
     *,
     strategy: Literal["fused", "partials", "stable", "reference"] = "fused",
-    n_rowgroups: Optional[int] = None,
-    n_rows: Optional[int] = None,
-    col_block: Optional[int] = None,
-    k_tiling: Literal["grid", "loop"] = "grid",
     device=None,
 ) -> torch.Tensor:
     """HBP SpMV: ``y = A @ x`` with A in HBP tile format, ``f32[n_rows]``.
 
-    ``k_tiling`` is accepted so a serving plan can pass one keyword set to
-    both entry points; a single vector is one launch under either.
     ``device`` applies when ``tiles`` are host tiles still to be staged.
     """
-    check_strategy(strategy, k_tiling)
-    dt, x = _resolve(tiles, x, device, n_rowgroups, n_rows, col_block)
+    check_strategy(strategy)
+    dt, x = _resolve(tiles, x, device)
     if x.dim() != 1:
         raise ValueError(f"x must be a vector, got shape {tuple(x.shape)}")
-    _record_launch(dt, 1, op="spmv", strategy=strategy, k_tiling=k_tiling)
+    _record_launch(dt, 1, op="spmv", strategy=strategy)
     if dt.n_tiles == 0:  # empty matrix: no tiles, y == 0
         return torch.zeros(dt.shape[0], dtype=torch.float32, device=dt.device)
     if strategy == "fused":
@@ -448,44 +410,27 @@ def hbp_spmm(
     *,
     strategy: Literal["fused", "partials", "stable", "reference"] = "fused",
     combine: Literal["sum", "max"] = "sum",
-    n_rowgroups: Optional[int] = None,
-    n_rows: Optional[int] = None,
-    col_block: Optional[int] = None,
-    k_tiling: Literal["grid", "loop"] = "grid",
     device=None,
 ) -> torch.Tensor:
     """HBP multi-RHS SpMM: ``Y = A @ X`` with ``X: [n_cols, k]``, ``f32[n_rows, k]``.
 
-    ``k_tiling="grid"`` serves any k in one call; ``"loop"`` is a host
-    loop of ``K_CHUNK``-wide calls.  Each output column is computed
-    independently of the others, so both give the same result.
-
-    ``combine`` selects the reduction monoid: ``"sum"`` is the standard
-    SpMM; ``"max"`` computes ``Y[i, c] = max_j A[i, j] * X[j, c]`` over
-    A's stored nonzero entries, 0 for rows with none (GNN max
-    aggregation).
+    Any k is one call; each output column is computed independently of
+    the others.  ``combine`` selects the reduction monoid: ``"sum"`` is
+    the standard SpMM; ``"max"`` computes ``Y[i, c] = max_j A[i, j] *
+    X[j, c]`` over A's stored nonzero entries, 0 for rows with none (GNN
+    max aggregation).
     """
     if combine not in COMBINES:
         raise ValueError(f"unknown combine {combine!r} (expected one of {COMBINES})")
-    check_strategy(strategy, k_tiling)
-    dt, x = _resolve(tiles, x, device, n_rowgroups, n_rows, col_block)
+    check_strategy(strategy)
+    dt, x = _resolve(tiles, x, device)
     if x.dim() != 2:
         raise ValueError(f"X must be [n_cols, k], got shape {tuple(x.shape)}")
     k = x.shape[1]
-    _record_launch(dt, k, op="spmm", strategy=strategy, k_tiling=k_tiling, combine=combine)
+    _record_launch(dt, k, op="spmm", strategy=strategy, combine=combine)
     if dt.n_tiles == 0:  # empty matrix: Y == 0
         return torch.zeros((dt.shape[0], k), dtype=torch.float32, device=dt.device)
-    x = x.contiguous()
-    if k_tiling == "grid" or k <= K_CHUNK:
-        y_hashed = _spmm_hashed(dt, x, strategy, combine)
-    else:
-        y_hashed = torch.cat(
-            [
-                _spmm_hashed(dt, x[:, lo : lo + K_CHUNK].contiguous(), strategy, combine)
-                for lo in range(0, k, K_CHUNK)
-            ],
-            dim=-1,
-        )
+    y_hashed = _spmm_hashed(dt, x.contiguous(), strategy, combine)
     if combine == "max":
         # rows with no live entry hold the identity; they aggregate to 0
         # (the convention for isolated graph nodes)
@@ -536,9 +481,6 @@ def hbp_spmm_argmax(
     tiles: HBPTiles | DeviceTiles,
     x,  # [n_cols, k]
     *,
-    n_rowgroups: Optional[int] = None,
-    n_rows: Optional[int] = None,
-    col_block: Optional[int] = None,
     passes: Literal[1, 3] = 1,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -564,13 +506,14 @@ def hbp_spmm_argmax(
     """
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes!r}")
-    dt, x = _resolve(tiles, x, device, n_rowgroups, n_rows, col_block)
+    dt, x = _resolve(tiles, x, device)
     if x.dim() != 2:
         raise ValueError(f"X must be [n_cols, k], got shape {tuple(x.shape)}")
     k = x.shape[1]
-    fused = passes == 1 and dt.device.type == "cuda"
-    _record_launch(dt, k, op="spmm_argmax", strategy="fused" if fused else "stable",
-                   k_tiling="grid", combine="max", passes=passes)
+    ran = "stable"  # the torch chains
+    if passes == 1 and dt.device.type == "cuda":
+        ran = "fused"  # the kernel
+    _record_launch(dt, k, op="spmm_argmax", strategy=ran, combine="max", passes=passes)
     n = dt.shape[0]
     if dt.n_tiles == 0:  # no tiles: every row is empty
         return (torch.zeros((n, k), dtype=torch.float32, device=dt.device),

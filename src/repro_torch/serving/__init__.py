@@ -14,8 +14,6 @@ from .autotune import (
     autotune_partition,
     cg_probe,
     matrix_hash,
-    measure_k_tilings,
-    pick_k_tiling,
     spmm_probe,
 )
 from .batcher import MicroBatcher, SpMVRequest
@@ -37,8 +35,6 @@ __all__ = [
     "Probe",
     "spmm_probe",
     "cg_probe",
-    "measure_k_tilings",
-    "pick_k_tiling",
     "autotune_partition",
     "matrix_hash",
     "MicroBatcher",

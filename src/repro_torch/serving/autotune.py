@@ -37,7 +37,6 @@ from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import PartitionConfig, enumerate_configs
 from repro_torch.core.tile import build_tiles, tuned_partition_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.ops import K_CHUNK
 
 __all__ = [
     "matrix_hash",
@@ -46,8 +45,6 @@ __all__ = [
     "Probe",
     "spmm_probe",
     "cg_probe",
-    "measure_k_tilings",
-    "pick_k_tiling",
     "autotune_partition",
     "DEFAULT_CACHE_DIR",
 ]
@@ -55,9 +52,6 @@ __all__ = [
 DEFAULT_CACHE_DIR = ".hbp_autotune"
 _CACHE_VERSION = 1
 _ENTRY_SUFFIX = ".torch.json"
-# RHS width where the two k_tiling contracts are measured against each
-# other: two K_CHUNK-wide "loop" launches against one "grid" launch
-_K_WIDE = 2 * K_CHUNK
 
 
 def matrix_hash(csr: CSRMatrix) -> str:
@@ -161,22 +155,19 @@ class Probe:
         return self.measure(csr, cfg, repeats)
 
 
-def spmm_probe(
-    k: int = 8, strategy: str = "stable", k_tiling: str = "grid", device=None
-) -> Probe:
+def spmm_probe(k: int = 8, strategy: str = "stable", device=None) -> Probe:
     """The default serving objective: one steady-state k-wide SpMM launch
     on ``device`` (default: the card) under ``strategy`` (any of
     ``ops.STRATEGIES``, the ``"partials"`` split included).  The device
     type is part of the fingerprint."""
-    ops.check_strategy(strategy, k_tiling)
+    ops.check_strategy(strategy)
     dev = ops.resolve_device(device)
-    params = (k, strategy, dev.type) if k <= K_CHUNK else (k, strategy, dev.type, k_tiling)
     return Probe(
         kind="spmm",
         measure=lambda csr, cfg, repeats: _measure_spmm_us(
-            csr, cfg, k, repeats, strategy, k_tiling=k_tiling, device=dev
+            csr, cfg, k, repeats, strategy, device=dev
         ),
-        params=params,
+        params=(k, strategy, dev.type),
     )
 
 
@@ -191,15 +182,15 @@ def cg_probe(
     blocked RHS (``k > 1``), the SpMM amortization the solver sees.
     ``tol=0`` pins the iteration count so every candidate runs exactly
     ``iters`` steps of the same Krylov recurrence.  ``strategy`` defaults
-    to what a registry on ``device`` (default: the card) serves:
-    ``"fused"`` on the card, ``"stable"`` on the CPU.  The kind names the
+    to what a registry on ``device`` (default: the card) serves
+    (:func:`repro_torch.kernels.ops.default_strategy`).  The kind names the
     solve, as in the JAX package; the params name the device type.
     """
     if strategy is not None:
         ops.check_strategy(strategy)
     dev = ops.resolve_device(device)
     if strategy is None:
-        strategy = "fused" if dev.type == "cuda" else "stable"
+        strategy = ops.default_strategy(dev)
 
     def measure(csr: CSRMatrix, cfg: PartitionConfig, repeats: int) -> float:
         from repro_torch.solvers import aslinearoperator, cg
@@ -243,7 +234,6 @@ def _measure_spmm_us(
     k: int,
     repeats: int,
     strategy: str,
-    k_tiling: str = "grid",
     device=None,
 ) -> float:
     """Median microseconds of one k-wide SpMM launch under ``cfg`` on
@@ -252,55 +242,7 @@ def _measure_spmm_us(
     x = torch.as_tensor(
         np.random.default_rng(0).standard_normal((csr.n_cols, k)).astype(np.float32)
     ).to(dt.device)
-    return _timed_us(
-        dt.device, lambda: ops.hbp_spmm(dt, x, strategy=strategy, k_tiling=k_tiling), repeats)
-
-
-def measure_k_tilings(
-    csr: CSRMatrix,
-    cfg: PartitionConfig,
-    *,
-    k: int = _K_WIDE,
-    strategy: str = "stable",
-    repeats: int = 3,
-    device=None,
-) -> Optional[dict]:
-    """Measured microseconds per launch-geometry contract, or ``None``.
-
-    Returns ``{"grid": us, "loop": us}`` at a width where the contracts
-    are different launches (``k`` above one ``"loop"`` chunk): under
-    ``"fused"`` and ``"partials"`` the loop re-reads the tile stream once
-    per chunk.  Under ``"stable"`` both contracts run the same full-width
-    torch chain, so measuring would rank noise: ``None``, and the caller
-    keeps the default.
-    """
-    ops.check_strategy(strategy)
-    device = ops.resolve_device(device)
-    if k <= K_CHUNK or strategy == "stable":
-        return None
-    return {
-        kt: _measure_spmm_us(csr, cfg, k, repeats, strategy, k_tiling=kt, device=device)
-        for kt in ("grid", "loop")
-    }
-
-
-def pick_k_tiling(
-    csr: CSRMatrix,
-    cfg: PartitionConfig,
-    *,
-    k: int = _K_WIDE,
-    strategy: str = "stable",
-    repeats: int = 3,
-    device=None,
-) -> str:
-    """``"grid"`` or ``"loop"``, whichever served the faster wide-k launch
-    (``"grid"`` when :func:`measure_k_tilings` has nothing to measure)."""
-    times = measure_k_tilings(
-        csr, cfg, k=k, strategy=strategy, repeats=repeats, device=device
-    )
-    if times is None:
-        return "grid"
-    return min(times, key=times.get)
+    return _timed_us(dt.device, lambda: ops.hbp_spmm(dt, x, strategy=strategy), repeats)
 
 
 def autotune_partition(
@@ -313,7 +255,6 @@ def autotune_partition(
     k: int = 8,
     repeats: int = 3,
     strategy: str = "stable",
-    k_tiling: str = "grid",
     probe: Optional[Probe] = None,
     device=None,
 ) -> AutotuneResult:
@@ -335,7 +276,7 @@ def autotune_partition(
     cache = cache or AutotuneCache()
     key = key or matrix_hash(csr)
     if probe is None:
-        probe = spmm_probe(k=k, strategy=strategy, k_tiling=k_tiling, device=device)
+        probe = spmm_probe(k=k, strategy=strategy, device=device)
     if search:
         candidates = (
             enumerate_configs(csr.shape) if candidates is None else list(candidates)

@@ -465,11 +465,12 @@ class ServingEngine:
         # (at the padded bucket width) joined with the measured seconds —
         # always live, labeled so attribution_rows() can group the join
         attr_labels = dict(
-            matrix=key, strategy=plan.strategy, k_tiling=plan.k_tiling
+            # k_tiling is a label of the telemetry schema shared with the JAX package
+            matrix=key, strategy=plan.strategy, k_tiling="grid"
         )
         m.counter("attr.launches", **attr_labels).inc()
         m.counter("attr.bytes_modeled", **attr_labels).inc(
-            modeled_launch_bytes(plan.device, launched_k, plan.strategy, plan.k_tiling)
+            modeled_launch_bytes(plan.device, launched_k, plan.strategy)
         )
         m.counter("attr.compute_s", **attr_labels).inc(compute_s)
         lat = m.histogram("serving.latency_s", window=_LATENCY_WINDOW, matrix=key)

@@ -37,7 +37,7 @@ from repro_torch.obs.flight import get_flight
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.requesttrace import mint_trace_id
 
-from .autotune import AutotuneCache, autotune_partition, matrix_hash, measure_k_tilings
+from .autotune import AutotuneCache, autotune_partition, matrix_hash
 from .eviction import LRUEvictor, plan_device_bytes
 
 __all__ = ["MatrixPlan", "MatrixRegistry"]
@@ -59,12 +59,8 @@ class MatrixPlan:
     autotune_cache_hit: bool
     autotune_searched: bool
     strategy: str = "fused"
-    # wide-k launch contract: "grid" = one launch for any k, "loop" = a
-    # host loop of 128-wide launches (an "auto" admission resolves to
-    # whichever measured faster)
-    k_tiling: str = "grid"
-    # admission-time partition-quality metrics and autotune provenance;
-    # deliberately NOT part of ``_meta()``: the kernels never see them
+    # admission-time partition-quality metrics and autotune provenance
+    # (the kernels never see them)
     quality: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     provenance: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     # A <-> Aᵀ link, set by MatrixRegistry.admit_pair: the transpose plan's
@@ -91,30 +87,21 @@ class MatrixPlan:
             return 1
         return int(self._metrics.value("registry.admissions", 1, matrix=self.name))
 
-    def _meta(self) -> dict:
-        return dict(
-            n_rowgroups=self.tiles.n_rowgroups,
-            n_rows=self.shape[0],
-            col_block=self.cfg.col_block,
-            strategy=self.strategy,
-            k_tiling=self.k_tiling,
-        )
-
     def matvec(self, x):
         """One-off ``A @ x`` against the resident plan (bypasses batching);
         a tensor on the plan's device."""
-        return ops.hbp_spmv(self.device, x, **self._meta())
+        return ops.hbp_spmv(self.device, x, strategy=self.strategy)
 
     def matmat(self, x, *, bucketed: bool = True, buckets=None, combine: str = "sum"):
         """``A @ X`` for an ``[n, k]`` block; ``bucketed`` pads k to the
         serving buckets (``buckets`` overrides the default set).
         ``combine`` selects the reduction monoid ("sum" | "max")."""
         if not bucketed:
-            return ops.hbp_spmm(self.device, x, combine=combine, **self._meta())
+            return ops.hbp_spmm(self.device, x, strategy=self.strategy, combine=combine)
         if buckets is None:
             buckets = ops.K_BUCKETS
         return ops.hbp_spmm_bucketed(
-            self.device, x, buckets=buckets, combine=combine, **self._meta()
+            self.device, x, buckets=buckets, strategy=self.strategy, combine=combine
         )
 
     def aggregate(self, x, *, op: str = "sum", bucketed: bool = True):
@@ -157,8 +144,7 @@ class MatrixPlan:
         return autodiff.device_diff_aggregator(
             self.device,
             plan_T.device if plan_T is not None else None,
-            self._meta(),
-            plan_T._meta() if plan_T is not None else None,
+            strategy=self.strategy,
             op=op,
             degree=self.row_nnz if op == "mean" else None,
             mode=mode,
@@ -178,7 +164,7 @@ class MatrixPlan:
             )
         plan_T = self._transpose
         return autodiff.attention_aggregator(
-            self.device, plan_T.device, self._attention, self._meta(), plan_T._meta()
+            self.device, plan_T.device, self._attention, self.strategy
         )
 
     def operator(self):
@@ -212,18 +198,14 @@ class MatrixRegistry:
     ``device`` is where plans are staged and served: ``None`` means the
     card, and with no card present the constructor raises (pass
     ``device="cpu"`` to serve with the plain PyTorch versions).  The
-    default ``strategy`` follows the device: the fused CUDA kernels on a
-    card, the batch-width-invariant ``"stable"`` chain on the CPU;
+    default ``strategy`` follows the device
+    (:func:`repro_torch.kernels.ops.default_strategy`);
     ``strategy="partials"`` serves the paper's two-phase split (the
     partials CUDA kernels and a deterministic run combine).
 
     ``search=False`` replaces the measured autotune search with the
     ``tuned_partition_config`` heuristic (still cached); ``candidates``
     narrows the measured search space.
-
-    ``k_tiling`` selects the wide-k launch contract every plan serves:
-    ``"grid"`` (default), ``"loop"``, or ``"auto"`` (measured per matrix
-    at admission by :func:`repro_torch.serving.autotune.measure_k_tilings`).
 
     ``metrics`` is the shared :class:`~repro_torch.obs.metrics.MetricRegistry`
     backing this registry's admission counters *and* every
@@ -246,23 +228,19 @@ class MatrixRegistry:
         candidates=None,
         autotune_k: int = 8,
         strategy: Optional[str] = None,
-        k_tiling: str = "grid",
         probe=None,
         metrics: Optional[MetricRegistry] = None,
         hbm_budget_bytes: Optional[int] = None,
     ):
         self.device = ops.resolve_device(device)
         if strategy is None:
-            strategy = "fused" if self.device.type == "cuda" else "stable"
+            strategy = ops.default_strategy(self.device)
         ops.check_strategy(strategy)
-        if k_tiling not in ("grid", "loop", "auto"):
-            raise ValueError(f"unknown k_tiling {k_tiling!r} (expected grid, loop or auto)")
         self.cache = AutotuneCache(cache_dir)
         self.search = search
         self.candidates = candidates
         self.autotune_k = autotune_k
         self.strategy = strategy
-        self.k_tiling = k_tiling
         self.probe = probe  # None: steady-state SpMM time (spmm_probe)
         self.metrics = metrics if metrics is not None else MetricRegistry(name="serving")
         self.evictor = LRUEvictor(hbm_budget_bytes) if hbm_budget_bytes is not None else None
@@ -304,7 +282,6 @@ class MatrixRegistry:
         admit_id = mint_trace_id("a")
         with obs.span("serve.admit", matrix=name, nnz=csr.nnz, trace_id=admit_id) as sp:
             t0 = time.perf_counter()
-            served_tiling = self.k_tiling if self.k_tiling != "auto" else "grid"
             pinned = cfg is not None
             if pinned:
                 tune_hit, tune_searched = False, False
@@ -318,7 +295,6 @@ class MatrixRegistry:
                     candidates=self.candidates,
                     k=self.autotune_k,
                     strategy=self.strategy,  # rank configs under the served path
-                    k_tiling=served_tiling,
                     probe=self.probe,
                     device=self.device,
                 )
@@ -326,13 +302,6 @@ class MatrixRegistry:
                 tune_hit, tune_searched = tuned.cache_hit, tuned.searched
                 trials = tuned.trials
                 evaluations, objective_us = tuned.evaluations, tuned.objective_us
-            k_tiling_us = None
-            if self.k_tiling == "auto":
-                k_tiling_us = measure_k_tilings(
-                    csr, cfg, strategy=self.strategy, device=self.device
-                )
-                if k_tiling_us:
-                    served_tiling = min(k_tiling_us, key=k_tiling_us.get)
             tiles = build_tiles(csr, cfg)
             with obs.span("serve.stage_device", matrix=name):
                 device = ops.device_tiles(tiles, self.device)
@@ -352,9 +321,7 @@ class MatrixRegistry:
             "evaluations": evaluations,
             "objective_us": objective_us,
             "trials": [dict(t) for t in trials],
-            "k_tiling": served_tiling,
-            "k_tiling_mode": self.k_tiling,
-            "k_tiling_us": k_tiling_us,
+            "k_tiling": "grid",  # a label of the telemetry schema shared with the JAX package
         }
 
         plan = MatrixPlan(
@@ -371,7 +338,6 @@ class MatrixRegistry:
             autotune_cache_hit=tune_hit,
             autotune_searched=tune_searched,
             strategy=self.strategy,
-            k_tiling=served_tiling,
             quality=quality,
             provenance=provenance,
             _metrics=self.metrics,
@@ -393,7 +359,6 @@ class MatrixRegistry:
             matrix=name,
             nnz=csr.nnz,
             preprocess_s=round(preprocess_s, 6),
-            k_tiling=served_tiling,
             trace_id=admit_id,
         )
         self._charge(plan)
@@ -556,7 +521,6 @@ class MatrixRegistry:
                 "shape": tuple(p.shape),
                 "nnz": p.nnz,
                 "config": dataclasses.asdict(p.cfg),
-                "k_tiling": p.k_tiling,
                 "admissions": p.admissions,
                 "preprocess_s": p.preprocess_s,
                 "autotune_cache_hit": p.autotune_cache_hit,

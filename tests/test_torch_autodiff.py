@@ -226,10 +226,9 @@ def test_validation_messages(small):
         tad.diff_aggregator(pt, op="median", device="cpu")
     with pytest.raises(ValueError, match="degree"):
         tad.diff_aggregator(pt, op="mean", device="cpu")
-    meta = dict(n_rowgroups=pt.tiles.n_rowgroups, n_rows=csr.n_rows,
-                col_block=pt.tiles.cfg.col_block, strategy="stable")
     with pytest.raises(ValueError, match="transpose tiles"):
-        tad.device_diff_aggregator(tops.device_tiles(pt.tiles, "cpu"), None, meta, None, op="sum")
+        tad.device_diff_aggregator(tops.device_tiles(pt.tiles, "cpu"), None, strategy="stable",
+                                   op="sum")
     # max and jvp never stage the transpose
     tad.diff_aggregator(tad.PairedTiles(pt.tiles, None), op="max", device="cpu")
     tad.diff_aggregator(tad.PairedTiles(pt.tiles, None), op="sum", mode="jvp", device="cpu")

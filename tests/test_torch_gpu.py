@@ -179,9 +179,8 @@ def test_bitwise_invariants_on_the_card(cuda, strategy):
         X = torch.randn(dt.shape[1], k, device=cuda, generator=g)
         X[:, k // 2] = x
         assert torch.equal(ops.hbp_spmm_bucketed(dt, X, strategy=strategy)[:, k // 2], y1)
-        for kt in ("grid", "loop"):
-            Y = ops.hbp_spmm(dt, X, strategy=strategy, k_tiling=kt)
-            assert torch.equal(Y[:, k // 2], y1), (k, kt)
+        Y = ops.hbp_spmm(dt, X, strategy=strategy)
+        assert torch.equal(Y[:, k // 2], y1), k
 
 
 def test_max_is_exact_across_strategies_on_the_card(cuda):
@@ -286,11 +285,15 @@ def test_hub_runs_match_plain_and_spmv_is_the_spmm_column(cuda, lane):
 
 
 @pytest.mark.parametrize("lane", [8, 128, 12])
-def test_hub_runs_grid_equals_loop_and_empty_groups_are_zero(cuda, lane):
+def test_hub_runs_wide_k_equals_its_column_blocks_and_empty_groups_are_zero(cuda, lane):
+    """One call at k = 256 gives the bits of two 128-wide calls side by
+    side (each column is computed on its own), and row groups without
+    tiles come out 0."""
     tiles, dt = _hub(cuda, lane)
     g = torch.Generator(device=cuda).manual_seed(4)
     X = torch.randn(dt.shape[1], 256, device=cuda, generator=g)
-    assert torch.equal(ops.hbp_spmm(dt, X, k_tiling="grid"), ops.hbp_spmm(dt, X, k_tiling="loop"))
+    halves = [ops.hbp_spmm(dt, X[:, lo:lo + 128].contiguous()) for lo in (0, 128)]
+    assert torch.equal(ops.hbp_spmm(dt, X), torch.cat(halves, dim=1))
     empty = torch.as_tensor(np.setdiff1d(np.arange(tiles.n_rowgroups), tiles.rowgroup),
                             device=cuda)
     assert empty.numel()
@@ -643,7 +646,7 @@ def test_argmax_kernel_counts_its_launches(cuda, tmp_path):
 
     tiles, dt = _hub(cuda, 8)
     X = torch.randn(dt.shape[1], 8, device=cuda)
-    labels = dict(op="spmm_argmax", k_tiling="grid", combine="max")
+    labels = dict(op="spmm_argmax", combine="max")
     obs.reset()
     obs.enable()
     try:

@@ -147,8 +147,6 @@ def test_autotune_and_solvers_default_to_the_card_and_raise_without_one(monkeypa
         lambda: autotune.spmm_probe(),
         lambda: autotune.cg_probe(),
         lambda: autotune._measure_spmm_us(csr, cfg, 8, 1, "stable"),
-        lambda: autotune.measure_k_tilings(csr, cfg),
-        lambda: autotune.pick_k_tiling(csr, cfg),
         lambda: autotune.autotune_partition(csr, cache=autotune.AutotuneCache(tmp_path)),
         lambda: solvers.aslinearoperator(build_tiles(csr, cfg)),
         lambda: solvers.aslinearoperator(csr),

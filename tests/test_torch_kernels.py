@@ -101,7 +101,8 @@ def test_spmv_matches_jax(tiles, strategy):
     _close(tops.hbp_spmv(dt, x, strategy=strategy), y_j)
 
 
-# under "loop" only widths above one 128-wide launch differ from "grid"
+# the port serves every k in one call; the JAX package's k_tiling="loop"
+# differs from its "grid" only at widths above one 128-wide launch
 FUSED_CASES = [(k, "grid") for k in KS] + [(k, "loop") for k in KS if k > 128]
 
 
@@ -110,7 +111,7 @@ def test_fused_spmm_matches_jax(tiles, k, k_tiling):
     tj, dt = tiles
     X = np.random.default_rng(k).standard_normal((tj.shape[1], k)).astype(np.float32)
     y_j = jops.hbp_spmm(tj, X, strategy="fused", interpret=True, k_tiling=k_tiling)
-    _close(tops.hbp_spmm(dt, X, strategy="fused", k_tiling=k_tiling), y_j)
+    _close(tops.hbp_spmm(dt, X, strategy="fused"), y_j)
 
 
 @pytest.mark.parametrize("k,k_tiling", FUSED_CASES)
@@ -118,7 +119,7 @@ def test_partials_spmm_matches_jax(tiles, k, k_tiling):
     tj, dt = tiles
     X = np.random.default_rng(k).standard_normal((tj.shape[1], k)).astype(np.float32)
     y_j = jops.hbp_spmm(tj, X, strategy="partials", interpret=True, k_tiling=k_tiling)
-    _close(tops.hbp_spmm(dt, X, strategy="partials", k_tiling=k_tiling), y_j)
+    _close(tops.hbp_spmm(dt, X, strategy="partials"), y_j)
 
 
 # the JAX "stable"/"reference" max chains unroll every lane into their
@@ -144,7 +145,7 @@ def test_max_matches_jax_exactly(lane, strategy, k, k_tiling):
     y_j = np.asarray(
         jops.hbp_spmm(tj, X, strategy=strategy, combine="max", interpret=True, k_tiling=k_tiling)
     )
-    y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max", k_tiling=k_tiling).numpy()
+    y_t = tops.hbp_spmm(dt, X, strategy=strategy, combine="max").numpy()
     # bit patterns: assert_array_equal would let -0.0 pass for +0.0
     np.testing.assert_array_equal(y_t.view(np.int32), y_j.view(np.int32))
 
@@ -309,8 +310,8 @@ def test_zero_row_groups_come_out_zero(zero_groups, strategy):
 
 @pytest.mark.parametrize("strategy", ["fused", "partials", "stable"])
 def test_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
-    """A column's bits do not depend on the batch width, on zero padding
-    to a bucket, or on the k_tiling contract; SpMV equals the column."""
+    """A column's bits do not depend on the batch width or on zero padding
+    to a bucket; SpMV equals the column."""
     tj, dt = tiles
     rng = np.random.default_rng(11)
     x = rng.standard_normal(tj.shape[1]).astype(np.float32)
@@ -318,9 +319,8 @@ def test_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
     for k in (1, 5, 8, 128, 200):
         X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
         X[:, k // 2] = x
-        for kt in ("grid", "loop"):
-            Y = tops.hbp_spmm(dt, X, strategy=strategy, k_tiling=kt)
-            assert torch.equal(Y[:, k // 2], y1), (k, kt)
+        Y = tops.hbp_spmm(dt, X, strategy=strategy)
+        assert torch.equal(Y[:, k // 2], y1), k
         Yb = tops.hbp_spmm_bucketed(dt, X, strategy=strategy)
         assert Yb.shape == (tj.shape[0], k)
         assert torch.equal(Yb[:, k // 2], y1), k
@@ -329,7 +329,7 @@ def test_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
 @pytest.mark.parametrize("strategy", ["fused", "partials"])
 def test_max_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
     """Under the max monoid a column's bits depend neither on the batch
-    width, nor on bucket padding, nor on the k_tiling contract."""
+    width nor on bucket padding."""
     tj, dt = tiles
     rng = np.random.default_rng(12)
     x = rng.standard_normal((tj.shape[1], 1)).astype(np.float32)
@@ -337,9 +337,8 @@ def test_max_batch_width_and_padding_invariance_is_bitwise(tiles, strategy):
     for k in (5, 8, 200):
         X = rng.standard_normal((tj.shape[1], k)).astype(np.float32)
         X[:, k // 2] = x[:, 0]
-        for kt in ("grid", "loop"):
-            Y = tops.hbp_spmm(dt, X, strategy=strategy, combine="max", k_tiling=kt)
-            assert torch.equal(Y[:, k // 2], y1), (k, kt)
+        Y = tops.hbp_spmm(dt, X, strategy=strategy, combine="max")
+        assert torch.equal(Y[:, k // 2], y1), k
         Yb = tops.hbp_spmm_bucketed(dt, X, strategy=strategy, combine="max")
         assert torch.equal(Yb[:, k // 2], y1), k
 
@@ -390,14 +389,18 @@ def test_empty_matrix():
 
 
 def test_traffic_model_counts_stream_passes(tiles):
+    """Every strategy pays the tile stream once at any k: the modeled
+    bytes are linear in k, and their constant part is the stream (and,
+    under "fused", the chunk index) read once."""
     _, dt = tiles
-    assert tops.stream_passes(256, "fused", "grid") == 1
-    assert tops.stream_passes(256, "fused", "loop") == 2
-    assert tops.stream_passes(100, "stable", "loop") == 1
-    one = tops.modeled_launch_bytes(dt, 128, "fused", "grid")
-    two = tops.modeled_launch_bytes(dt, 256, "fused", "loop")
     stream = dt.data.nbytes + dt.cols.nbytes + dt.colblock.nbytes
-    assert two > 2 * one - 2 * (dt.n_rowgroups * 8 * 128 * 4) and one > stream
+    stream += dt.run_start.nbytes + dt.run_rowgroup.nbytes
+    for strategy in tops.STRATEGIES:
+        b1, b128, b256 = (tops.modeled_launch_bytes(dt, k, strategy) for k in (1, 128, 256))
+        per_column, rest = divmod(b256 - b128, 128)
+        assert rest == 0 and b128 - b1 == 127 * per_column, strategy
+        once = stream + (dt.chunk_index_nbytes if strategy == "fused" else 0)
+        assert b1 - per_column == once, strategy
 
 
 def test_traffic_model_charges_the_partials_buffer(tiles):
@@ -405,24 +408,23 @@ def test_traffic_model_charges_the_partials_buffer(tiles):
     T, group = dt.n_tiles, dt.data.shape[1]
     for k in (1, 8, 256):
         # the fused bytes without the chunk index and the chunk buffer
-        fused = tops.modeled_launch_bytes(dt, k, "fused", "grid")
+        fused = tops.modeled_launch_bytes(dt, k, "fused")
         fused -= dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
-        assert tops.modeled_launch_bytes(dt, k, "partials", "grid") == fused + 2 * T * group * k * 4
+        assert tops.modeled_launch_bytes(dt, k, "partials") == fused + 2 * T * group * k * 4
 
 
 def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
-    """The fused kernels, sum and max alike, pay the chunk index once per
-    stream pass and the split runs' chunk buffer written and read once,
-    beyond what a strategy with neither ("stable") pays; the fused entry
-    point records those bytes under either monoid."""
+    """The fused kernels, sum and max alike, pay the chunk index once and
+    the split runs' chunk buffer written and read once, beyond what a
+    strategy with neither ("stable") pays; the fused entry point records
+    those bytes under either monoid."""
     _, dt = hub
     assert dt.n_split_chunks > 0
-    for k, kt in ((1, "grid"), (8, "grid"), (256, "grid"), (256, "loop")):
-        fused = tops.modeled_launch_bytes(dt, k, "fused", kt)
-        plain = tops.modeled_launch_bytes(dt, k, "stable", kt)
-        passes = tops.stream_passes(k, "fused", kt)
+    for k in (1, 8, 256):
+        fused = tops.modeled_launch_bytes(dt, k, "fused")
+        plain = tops.modeled_launch_bytes(dt, k, "stable")
         assert dt.chunk_buffer_nbytes(k) == dt.n_split_chunks * 8 * k * 4
-        assert fused - plain == passes * dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
+        assert fused - plain == dt.chunk_index_nbytes + 2 * dt.chunk_buffer_nbytes(k)
     X = np.random.default_rng(14).standard_normal((dt.shape[1], 8)).astype(np.float32)
     obs.reset()
     obs.enable()
@@ -431,7 +433,7 @@ def test_traffic_model_charges_the_chunk_index_and_buffer(hub):
             before = obs.registry().value("kernels.bytes_modeled")
             tops.hbp_spmm(dt, X, strategy="fused", combine=combine)
             recorded = obs.registry().value("kernels.bytes_modeled") - before
-            assert recorded == tops.modeled_launch_bytes(dt, 8, "fused", "grid"), combine
+            assert recorded == tops.modeled_launch_bytes(dt, 8, "fused"), combine
     finally:
         obs.disable()
         obs.reset()
@@ -452,7 +454,7 @@ def test_argmax_on_cpu_tiles_is_the_one_pass_torch_chain(hub):
         n_rowgroups=dt.n_rowgroups, lengths=dt.rg_lengths)
     y = y.masked_fill(torch.isneginf(y), 0.0)
     want = [tref.unpermute(a, dt.perm, dt.shape[0]) for a in (y, idx, coeff)]
-    labels = dict(op="spmm_argmax", k_tiling="grid", combine="max")
+    labels = dict(op="spmm_argmax", combine="max")
     launches = hbp_spmm_fused_argmax.launches
     obs.reset()
     obs.enable()
@@ -484,8 +486,8 @@ def test_deferred_paths_raise_not_implemented(tiles):
     assert tops.hbp_spmm(dt, X, combine="max").shape == (dt.shape[0], 2)
     with pytest.raises(ValueError):
         tops.hbp_spmm(dt, X, strategy="bogus")
-    with pytest.raises(ValueError):
-        tops.hbp_spmm(dt, X, k_tiling="bogus")
+    with pytest.raises(TypeError):  # the staged tiles carry their own launch settings
+        tops.hbp_spmm(dt, X, k_tiling="grid")
     with pytest.raises(ValueError, match="combine"):
         tops.hbp_spmm(dt, X, combine="min")
 
@@ -496,8 +498,10 @@ def test_wrappers_check_their_operands(tiles):
         hbp_spmv_fused(dt, torch.zeros(dt.shape[1] + 1))
     with pytest.raises(TypeError, match="float32"):
         hbp_spmm_fused(dt, torch.zeros((dt.shape[1], 2), dtype=torch.float64))
-    with pytest.raises(ValueError, match="n_rows"):
-        tops.hbp_spmv(dt, np.zeros(dt.shape[1], np.float32), n_rows=dt.shape[0] + 1)
+    with pytest.raises(ValueError, match="columns"):
+        tops.hbp_spmv(dt, np.zeros(dt.shape[1] + 1, np.float32))
+    with pytest.raises(TypeError):
+        tops.hbp_spmv(dt, np.zeros(dt.shape[1], np.float32), n_rows=dt.shape[0])
     x = np.zeros(dt.shape[1], np.float32)
     assert tops.hbp_spmv(dt, x, device="cpu").shape == (dt.shape[0],)
     with pytest.raises(ValueError, match="staged on"):

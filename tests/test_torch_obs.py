@@ -49,9 +49,9 @@ def test_kernel_entry_points_count_launches_when_enabled(enabled_obs):
     dt = ops.device_tiles(tcore.build_tiles(csr, tcore.PartitionConfig(lane=8)), "cpu")
     ops.hbp_spmm(dt, np.ones((100, 3), np.float32), strategy="stable")
     assert obs.registry().value("kernels.launches", op="spmm", strategy="stable",
-                                k_tiling="grid", combine="sum") == 1
+                                combine="sum") == 1
     assert obs.registry().value("kernels.bytes_modeled") == ops.modeled_launch_bytes(
-        dt, 3, "stable", "grid"
+        dt, 3, "stable"
     )
 
 

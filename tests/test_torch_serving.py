@@ -112,6 +112,12 @@ def test_mixed_k_traffic_matches_jax_and_matvec(tmp_path, registries, strategy, 
     assert teng.inflight() == 0
 
 
+# what the JAX package records of its k_tiling choice, which the port does
+# not have: it serves every k in one launch
+_JAX_ONLY_STATS = {"k_tiling"}
+_JAX_ONLY_PROVENANCE = {"k_tiling_mode", "k_tiling_us"}
+
+
 def test_stats_key_sets_match_jax(tmp_path, registries):
     jreg, jm = registries
     treg, tm = _port_registry(tmp_path)
@@ -122,9 +128,10 @@ def test_stats_key_sets_match_jax(tmp_path, registries):
     js, ts = jeng.stats(), teng.stats()
     assert set(ts) == set(js) == {"A", "B"}
     for key in js:
-        assert set(ts[key]) == set(js[key])
+        assert set(ts[key]) == set(js[key]) - _JAX_ONLY_STATS
         assert set(ts[key]["quality"]) == set(js[key]["quality"])
-        assert set(ts[key]["provenance"]) == set(js[key]["provenance"])
+        assert set(ts[key]["provenance"]) == set(js[key]["provenance"]) - _JAX_ONLY_PROVENANCE
+        assert ts[key]["provenance"]["k_tiling"] == "grid"
         assert ts[key]["config"] == js[key]["config"]
         assert ts[key]["matrix_hash"] == js[key]["matrix_hash"]
         for q in ("tiles", "nnz_utilization", "rowgroup_imbalance", "competitive_ratio"):
@@ -185,8 +192,8 @@ def test_registry_device_and_strategy_defaults(tmp_path):
     assert reg.strategy == "partials"
     with pytest.raises(ValueError):
         tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, strategy="bogus")
-    with pytest.raises(ValueError):
-        tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, k_tiling="bogus")
+    with pytest.raises(TypeError):  # every k is one launch: there is no contract to pick
+        tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path, k_tiling="grid")
 
 
 def test_deferred_registry_surface_raises(tmp_path):
@@ -259,30 +266,57 @@ def test_measured_search_keeps_its_own_cache_entries(tmp_path, monkeypatch):
     assert fp_cpu != fp_cuda and "cpu" in fp_cpu
 
 
-def test_partials_probe_and_k_tilings(tmp_path):
-    """The measured search and the k_tiling measurement serve "partials"."""
+def test_partials_probe(tmp_path):
+    """The measured search serves "partials"; the probe's params are (k,
+    strategy, device type) at every k."""
     A = _mats(tmat)["B"]
     cands = [tcore.PartitionConfig(**SMALL), tcore.PartitionConfig(**{**SMALL, "lane": 8})]
     reg = tserving.MatrixRegistry(
         device="cpu", cache_dir=tmp_path, candidates=cands, strategy="partials",
-        k_tiling="auto",
     )
     plan = reg.admit(A, "B")
     assert plan.autotune_searched and len(plan.provenance["trials"]) == 2
-    assert set(plan.provenance["k_tiling_us"]) == {"grid", "loop"}
+    assert plan.strategy == "partials"
     probe = tserving.spmm_probe(strategy="partials", device="cpu")
     assert probe.params == (8, "partials", "cpu")
+    assert tserving.spmm_probe(k=256, strategy="partials", device="cpu").params == (
+        256, "partials", "cpu")
     with pytest.raises(ValueError):
         tserving.spmm_probe(strategy="bogus")
 
 
-def test_auto_k_tiling_keeps_grid_for_stable(tmp_path):
-    treg = tserving.MatrixRegistry(
-        device="cpu", cache_dir=tmp_path, search=False, k_tiling="auto"
-    )
-    plan = treg.admit(_mats(tmat)["B"], "B")
-    assert plan.k_tiling == "grid" and plan.provenance["k_tiling_us"] is None
-    us = tserving.measure_k_tilings(
-        _mats(tmat)["B"], plan.cfg, strategy="fused", repeats=1, device="cpu"
-    )
-    assert set(us) == {"grid", "loop"}
+def test_default_strategy_has_one_home(tmp_path, monkeypatch):
+    """Every layer that picks a strategy for its device asks
+    ``ops.default_strategy``: the registry, the trainer, the CG probe and
+    the graph aggregators, whose launches then run under its answer."""
+    from repro_torch import obs
+    from repro_torch.graph import make_attention_aggregator, make_diff_aggregator
+    from repro_torch.graph.train import NodeClassifierTrainer
+    from repro_torch.kernels import ops
+
+    asked = []
+
+    def partials(device):
+        asked.append(torch.device(device).type)
+        return "partials"
+
+    monkeypatch.setattr(ops, "default_strategy", partials)
+    assert tserving.MatrixRegistry(device="cpu", cache_dir=tmp_path).strategy == "partials"
+    assert NodeClassifierTrainer([4, 2], device="cpu").strategy == "partials"
+    assert tserving.cg_probe(device="cpu").kind.endswith("_partials")
+    adj = _mats(tmat)["B"]
+    n = adj.shape[0]
+    x = torch.ones(n, 2)
+    obs.reset()
+    obs.enable()
+    try:
+        make_diff_aggregator(adj, device="cpu")(x)
+        make_attention_aggregator(adj, device="cpu")(x, torch.zeros(n, 1), torch.zeros(n, 1))
+        launches = {
+            m.labels["strategy"] for m in obs.registry().find("kernels.launches")
+        }
+    finally:
+        obs.disable()
+        obs.reset()
+    assert launches == {"partials"}
+    assert asked == ["cpu"] * 5
