@@ -74,7 +74,11 @@ Phases (any failure exits non-zero; none is caught):
    within ``1e-5 * |want| + 1e-5 * sqrt(C)`` of a float64 ``ref.sddmm``,
    beside its plain version, ``torch.sparse.sampled_addmm`` on a batched
    CSR (the heads as the batch: cuSPARSE's SDDMM, a yardstick the port
-   does not call) and ``h100bench/work/gat.py``'s bound;
+   does not call) and ``h100bench/work/gat.py``'s bound; and GAT's edge
+   softmax kernels (:func:`softmax_times_rows`) on the same ``A + I`` at 3
+   heads, forward and backward (its row and column launches), against
+   float64 plain versions, beside the plain versions on the card (the torch
+   segment passes they replaced) and ``softmax()``'s bound;
 
 and, run after phase 2 (mesh), after phase 3 (zero, spmv), after phase 5
 (telemetry, distributed) and after phase 6 (train, solvers, lm, lm-train,
@@ -436,10 +440,98 @@ def sddmm_times_rows(adj, dev, g, smi_line: str) -> list:
     return rows
 
 
-def sddmm_phase() -> None:
-    """The SDDMM rows of ``[times]`` alone, on ``A + I`` of the graph
-    phase's ``rmat_graph(1 << 16, 79.345703125, seed=4)``:
-    ``python -c "import chip_smoke; chip_smoke.sddmm_phase()"``."""
+def softmax_times_rows(adj, dev, g, smi_line: str) -> list:
+    """``[times]`` rows of GAT's edge softmax kernels (``csrc/hbp_softmax.cu``)
+    on the CSR ``adj`` (``A + I``, symmetric: one tile set serves A and
+    Aᵀ, as the registry's self-linked pair does), ``GAT_HEADS`` heads: the
+    forward (``hbp_edge_softmax`` and ``hbp_rewrite`` into A's copies) and
+    the backward (``hbp_edge_softmax_backward``, ``hbp_edge_softmax_columns``
+    and ``hbp_rewrite`` into Aᵀ's copies), each held to its float64 plain
+    version (``ref.edge_softmax*``, ``ref.rewritten_values``) within ``1e-5 *
+    |want| + 1e-5 * max(1, |want|_inf)`` and to itself on a second launch,
+    its launches counted from a reset, beside its plain version on the card
+    (the torch segment passes it replaced) and the work model's bound
+    (``h100bench/work/gat.py``'s ``softmax()``: what ``attn_ms.train``
+    covers)."""
+    from h100bench.peaks import peaks_for
+    from h100bench.work import gat as gat_work
+    from repro_torch.core import build_tiles, tuned_partition_config
+    from repro_torch.kernels import autodiff, ref
+
+    K = importlib.import_module("repro_torch.kernels.hbp_spmv")
+    peaks = peaks_for(torch.cuda.get_device_name(dev))
+    n, nnz, heads = adj.shape[0], adj.nnz, GAT_HEADS
+    tiles = build_tiles(adj, tuned_partition_config(adj))
+    m = autodiff.attention_maps(adj, tiles, tiles, dev)
+    s_src, s_dst = torch.randn((2, n, heads), device=dev, generator=g).unbind(0)
+    d_alpha = torch.randn((nnz, heads), device=dev, generator=g)
+    wrappers = (K.hbp_edge_softmax, K.hbp_edge_softmax_backward, K.hbp_edge_softmax_columns,
+                K.hbp_rewrite)
+
+    def forward():
+        alpha = K.hbp_edge_softmax(m.indptr, m.cols, m.walk, s_src, s_dst)
+        return alpha, K.hbp_rewrite(m.entry, alpha)
+
+    alpha = forward()[0]
+
+    def backward():
+        de, d_dst = K.hbp_edge_softmax_backward(m.indptr, m.cols, m.walk, s_src, s_dst, alpha,
+                                                d_alpha)
+        return (de, d_dst, K.hbp_edge_softmax_columns(m.indptr_T, m.perm_T, m.walk_T, de),
+                K.hbp_rewrite(m.entry_T, alpha))
+
+    def plain_forward(src, dst):
+        a = ref.edge_softmax(m.indptr, m.cols, src, dst)
+        return a, ref.rewritten_values(m.entry, a)
+
+    def plain_backward(src, dst, a, da):
+        de, d_dst = ref.edge_softmax_backward(m.indptr, m.cols, src, dst, a, da)
+        return (de, d_dst, ref.edge_softmax_columns(m.indptr_T, m.perm_T, de),
+                ref.rewritten_values(m.entry_T, a))
+
+    f64 = [t.double() for t in (s_src, s_dst, alpha, d_alpha)]
+    rows = []
+    for name, kernel, plain, plain_args, backward_work in (
+            ("hbp_edge_softmax", forward, plain_forward, (s_src, s_dst), False),
+            ("hbp_edge_softmax_backward", backward, plain_backward,
+             (s_src, s_dst, alpha, d_alpha), True)):
+        for w in wrappers:
+            w.launches = 0
+        got = kernel()
+        want = plain(*f64[:len(plain_args)])
+        max_err = 0.0
+        for a, b in zip(got, want):
+            err = (a.double() - b).abs()
+            check(bool(torch.all(err <= 1e-5 * b.abs() + 1e-5 * max(1.0, b.abs().max().item()))),
+                  f"{name}: disagrees with the float64 plain version "
+                  f"(max abs err {err.max().item():.3e})")
+            max_err = max(max_err, err.max().item())
+        check(all(torch.equal(a, b) for a, b in zip(got, kernel())),
+              f"{name}: two launches differ")
+        del got, want
+        iters = 20
+        ms = timed_ms(kernel, iters)
+        calls = 2 + 2 + iters  # the checks, timed_ms's warm-up, the timed calls
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        check(launches and all(v == calls for v in launches.values()),
+              f"{name}: {launches} launches for {calls} calls")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hbp_softmax.cu", "replaces": None,
+            "matrix": "A + I", "n": n, "nnz": nnz, "heads": heads, "slots": tiles.data.size,
+            "long_rows": m.walk.n_long, "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": timed_ms(lambda: plain(*plain_args), 3, warmup=1),
+            "bound_ms": gat_work.softmax(n, nnz, heads, backward=backward_work).bound_s(peaks)
+            * 1e3,
+            "card": smi_line,
+        })
+    return rows
+
+
+def gat_kernels_phase() -> None:
+    """The SDDMM and edge softmax rows of ``[times]`` alone, on ``A + I`` of
+    the graph phase's ``rmat_graph(1 << 16, 79.345703125, seed=4)``:
+    ``python -c "import chip_smoke; chip_smoke.gat_kernels_phase()"``."""
     from repro_torch.graph import add_self_loops, rmat_graph
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -448,7 +540,9 @@ def sddmm_phase() -> None:
         capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     adj = add_self_loops(rmat_graph(1 << 16, 79.345703125, seed=4))
-    for row in sddmm_times_rows(adj, dev, torch.Generator(device=dev).manual_seed(0), smi_line):
+    g = torch.Generator(device=dev).manual_seed(0)
+    for row in sddmm_times_rows(adj, dev, g, smi_line) + softmax_times_rows(adj, dev, g,
+                                                                              smi_line):
         log("[times] " + json.dumps(row))
 
 
@@ -2902,7 +2996,10 @@ def main() -> None:
         log("[times] " + json.dumps(row))
     # GAT's SDDMM kernel (it replaces no TPU kernel) on A + I of the graph
     # phase's A, at the heads and widths of the gat.train.kron16 cell
-    for row in sddmm_times_rows(add_self_loops(A), dev, g, smi_line):
+    # and its edge softmax kernels, forward and backward, at 3 heads
+    looped = add_self_loops(A)
+    for row in (sddmm_times_rows(looped, dev, g, smi_line)
+                + softmax_times_rows(looped, dev, g, smi_line)):
         log("[times] " + json.dumps(row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     # the kernels line: the SpMV kernels at k=1, the sum SpMM kernels at the

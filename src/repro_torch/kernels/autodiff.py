@@ -44,14 +44,18 @@ GAT's attention aggregation (:func:`attention_aggregator`) is one Function
 over ``(z, s_src, s_dst)`` whose sparse matrix gets new values on every
 call: per head ``y_h = α_h z_h`` with ``α[(i, j), h] = softmax_j
 LeakyReLU_0.2(s_dst[i, h] + s_src[j, h])`` over each row's stored entries.
-The structure is tiled once; each call writes α into a copy of the tile
-values through the slot maps of :class:`AttentionMaps` and launches one
-sum SpMM per head.  The backward writes α into copies of Aᵀ's tiles and
-launches one SpMM per head on them (``z̄_h = α_hᵀ ȳ_h``), the SDDMM
-``ᾱ[(i, j), h] = ȳ_i,h · z_j,h`` (:func:`.hbp_spmv.hbp_sddmm`, a kernel on
-the card), then the softmax and LeakyReLU backward and the score
-gradients as segment sums (``index_add_``: atomic on the card, so their
-last bits change from run to run).  It is differentiable once.
+The structure is tiled once; each call computes α
+(:func:`.hbp_spmv.hbp_edge_softmax`), writes it into a copy of the tile
+values a head through the entry maps of :class:`AttentionMaps`
+(:func:`.hbp_spmv.hbp_rewrite`) and launches one sum SpMM per head.  The
+backward runs the SDDMM ``ᾱ[(i, j), h] = ȳ_i,h · z_j,h``
+(:func:`.hbp_spmv.hbp_sddmm`), then the softmax's and LeakyReLU's backward
+by A's rows (:func:`.hbp_spmv.hbp_edge_softmax_backward`), the source
+scores' gradient by Aᵀ's rows (:func:`.hbp_spmv.hbp_edge_softmax_columns`),
+the rewrite of α into copies of Aᵀ's tiles, and one SpMM per head on them
+(``z̄_h = α_hᵀ ȳ_h``).  Each of these is a kernel on the card, and each sum
+there is taken in a fixed order, without atomics: the same inputs give the
+same bits.  It is differentiable once.
 """
 from __future__ import annotations
 
@@ -60,7 +64,6 @@ from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from repro_torch import obs
@@ -68,7 +71,16 @@ from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.tile import HBPTiles, build_tiles, tuned_partition_config
 
 from . import ops
-from .hbp_spmv import hbp_sddmm
+from .hbp_spmv import (
+    RowWalk,
+    hbp_edge_softmax,
+    hbp_edge_softmax_backward,
+    hbp_edge_softmax_columns,
+    hbp_rewrite,
+    hbp_sddmm,
+    row_walk,
+)
+from .ref import NEGATIVE_SLOPE
 
 __all__ = [
     "PairedTiles",
@@ -84,7 +96,6 @@ __all__ = [
     "AttentionMaps",
     "attention_maps",
     "rewritten_tiles",
-    "edge_softmax",
     "attention_aggregator",
     "NEGATIVE_SLOPE",
 ]
@@ -387,21 +398,21 @@ def diff_aggregator(
     )
 
 
-# GAT's LeakyReLU slope on the edge scores (Veličković et al. 2018)
-NEGATIVE_SLOPE = 0.2
-
-
 class AttentionMaps(NamedTuple):
-    """What writing new values into A's and Aᵀ's staged tiles needs, on the
-    tiles' device: A's CSR structure (row = destination) and each entry's
-    slot in both tile sets (:attr:`HBPTiles.slot <repro_torch.core.tile.
-    HBPTiles>`)."""
+    """What the attention aggregation needs beside A's and Aᵀ's staged
+    tiles, on the tiles' device: A's CSR structure (row = destination) and
+    Aᵀ's, the entry of A that each slot of either tile set holds (from
+    :attr:`HBPTiles.slot <repro_torch.core.tile.HBPTiles>`), and the order
+    in which the edge softmax's kernels walk A's rows and Aᵀ's."""
 
     indptr: torch.Tensor  # i64[n_rows + 1]
-    rows: torch.Tensor  # i64[nnz]: each entry's row
     cols: torch.Tensor  # i32[nnz]
-    slot: torch.Tensor  # i64[nnz]: entry e of A at data.view(-1)[slot[e]] of A's tiles
-    slot_T: torch.Tensor  # i64[nnz]: entry e = (i, j) as Aᵀ's (j, i), in Aᵀ's tiles
+    entry: torch.Tensor  # i32[A's slots]: the entry of A at data.view(-1)[s], -1 in the padding
+    indptr_T: torch.Tensor  # i64[n_cols + 1]: Aᵀ's rows
+    perm_T: torch.Tensor  # i32[nnz]: Aᵀ's position p holds A's entry perm_T[p]
+    entry_T: torch.Tensor  # i32[Aᵀ's slots]: A's entry (i, j), stored as Aᵀ's (j, i), or -1
+    walk: RowWalk  # A's rows
+    walk_T: RowWalk  # Aᵀ's rows
 
 
 def attention_maps(csr: CSRMatrix, tiles: HBPTiles, tiles_T: HBPTiles, device) -> AttentionMaps:
@@ -412,47 +423,38 @@ def attention_maps(csr: CSRMatrix, tiles: HBPTiles, tiles_T: HBPTiles, device) -
         raise ValueError("the tiles carry no slot map: build them with build_tiles")
     rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), csr.row_nnz())
     order = np.lexsort((rows, csr.indices))  # Aᵀ's position p holds A's entry order[p]
-    position_T = np.empty_like(order)
-    position_T[order] = np.arange(order.size)
+    indptr_T = np.zeros(csr.shape[1] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(csr.indices, minlength=csr.shape[1]), out=indptr_T[1:])
+
+    def entries(t: HBPTiles, held):
+        entry = np.full(t.data.size, -1, dtype=np.int32)
+        entry[t.slot] = held
+        return torch.from_numpy(entry).to(device)
 
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
 
-    return AttentionMaps(put(csr.indptr, torch.int64), put(rows, torch.int64),
-                         put(csr.indices, torch.int32), put(tiles.slot, torch.int64),
-                         put(tiles_T.slot[position_T], torch.int64))
+    def walk(indptr):
+        w = row_walk(torch.from_numpy(indptr))
+        return RowWalk(w.order.to(device), w.n_long)
+
+    return AttentionMaps(put(csr.indptr, torch.int64), put(csr.indices, torch.int32),
+                         entries(tiles, np.arange(csr.nnz)), put(indptr_T, torch.int64),
+                         put(order, torch.int32), entries(tiles_T, order),
+                         walk(csr.indptr), walk(indptr_T))
 
 
-def rewritten_tiles(dt: ops.DeviceTiles, slot: torch.Tensor,
+def rewritten_tiles(dt: ops.DeviceTiles, entry: torch.Tensor,
                     values: torch.Tensor) -> List[ops.DeviceTiles]:
-    """One copy of ``dt`` per column of ``values`` (``[nnz, H]``, CSR
-    order), whose data holds that column at ``slot`` and 0 in the padded
-    slots; the structure tensors are shared (counter
-    ``agg.rewritten_slots``: the slots written)."""
-    heads = values.shape[1]
-    data = torch.zeros((heads, dt.data.numel()), dtype=torch.float32, device=dt.device)
-    data.index_copy_(1, slot, values.t())
+    """One copy of ``dt`` per column of ``values`` (``[nnz, H]``), whose
+    data holds ``values[entry[s], h]`` at slot s and 0 in the padded slots
+    (:func:`.hbp_spmv.hbp_rewrite`: a kernel on the card); the structure
+    tensors are shared.  Counts the stored entries' slots written
+    (``values.numel()``) in ``agg.rewritten_slots``."""
+    data = hbp_rewrite(entry, values)
     if obs.enabled():
-        obs.counter("agg.rewritten_slots").inc(slot.numel() * heads)
-    return [dataclasses.replace(dt, data=data[h].view_as(dt.data)) for h in range(heads)]
-
-
-def _edge_scores(s_src: torch.Tensor, s_dst: torch.Tensor, maps: AttentionMaps) -> torch.Tensor:
-    """``s_dst[row(e)] + s_src[col(e)]``, ``[nnz, H]``: the scores before
-    the LeakyReLU."""
-    return s_dst.index_select(0, maps.rows) + s_src.index_select(0, maps.cols)
-
-
-def edge_softmax(s_src: torch.Tensor, s_dst: torch.Tensor, maps: AttentionMaps) -> torch.Tensor:
-    """GAT's attention weights ``α``, ``[nnz, H]`` in CSR order: the
-    LeakyReLU of the edge scores, softmax over each row's entries with the
-    row's maximum subtracted."""
-    e = F.leaky_relu(_edge_scores(s_src, s_dst, maps), NEGATIVE_SLOPE)
-    top = torch.full_like(s_dst, float("-inf")).scatter_reduce_(
-        0, maps.rows[:, None].expand_as(e), e, "amax")
-    ex = (e - top.index_select(0, maps.rows)).exp_()
-    total = torch.zeros_like(s_dst).index_add_(0, maps.rows, ex)
-    return ex.div_(total.index_select(0, maps.rows))
+        obs.counter("agg.rewritten_slots").inc(values.numel())
+    return [dataclasses.replace(dt, data=row.view_as(dt.data)) for row in data]
 
 
 class _AttentionPlan(NamedTuple):
@@ -472,16 +474,19 @@ def _per_head(tiles: List[ops.DeviceTiles], x: torch.Tensor, strategy: str) -> t
 
 class _Attention(torch.autograd.Function):
     """``y = concat_h α_h z_h`` from ``(z, s_src, s_dst)``; see the module
-    notes.  Spans: ``agg.attention`` (scores, softmax, rewrite),
-    ``agg.forward`` (the SpMMs); backward ``agg.attention_backward`` (the
-    rewrite of Aᵀ, then the softmax and score gradients), ``agg.backward``
-    (the SpMMs on Aᵀ), ``agg.sddmm``."""
+    notes.  Spans: ``agg.attention`` (the softmax and the rewrite of A's
+    copies), ``agg.forward`` (the SpMMs); backward ``agg.sddmm``, then
+    ``agg.attention_backward`` (the softmax's backward, the score gradients
+    and the rewrite of Aᵀ's copies), then ``agg.backward`` (the SpMMs on
+    Aᵀ)."""
 
     @staticmethod
     def forward(ctx, z, s_src, s_dst, att):
+        maps = att.maps
+        s_src, s_dst = _f32(s_src), _f32(s_dst)
         with obs.span("agg.attention"):
-            alpha = edge_softmax(s_src, s_dst, att.maps)
-            tiles = rewritten_tiles(att.dt, att.maps.slot, alpha)
+            alpha = hbp_edge_softmax(maps.indptr, maps.cols, maps.walk, s_src, s_dst)
+            tiles = rewritten_tiles(att.dt, maps.entry, alpha)
         with obs.span("agg.forward"):
             y = _per_head(tiles, z, att.strategy)
         ctx.save_for_backward(z, s_src, s_dst, alpha)
@@ -493,20 +498,17 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, dy):
         z, s_src, s_dst, alpha = ctx.saved_tensors
         att = ctx.att
-        maps, heads = att.maps, alpha.shape[1]
+        maps = att.maps
         dy = _f32(dy)
+        with obs.span("agg.sddmm"):
+            d_alpha = hbp_sddmm(maps.indptr, maps.cols, dy, z.contiguous(), alpha.shape[1])
         with obs.span("agg.attention_backward"):
-            tiles_T = rewritten_tiles(att.dt_T, maps.slot_T, alpha)
+            de, d_dst = hbp_edge_softmax_backward(maps.indptr, maps.cols, maps.walk, s_src,
+                                                  s_dst, alpha, d_alpha)
+            d_src = hbp_edge_softmax_columns(maps.indptr_T, maps.perm_T, maps.walk_T, de)
+            tiles_T = rewritten_tiles(att.dt_T, maps.entry_T, alpha)
         with obs.span("agg.backward"):
             dz = _per_head(tiles_T, dy, att.strategy)
-        with obs.span("agg.sddmm"):
-            d_alpha = hbp_sddmm(maps.indptr, maps.cols, dy, z.contiguous(), heads)
-        with obs.span("agg.attention_backward"):
-            weighted = torch.zeros_like(s_dst).index_add_(0, maps.rows, alpha * d_alpha)
-            de = alpha * (d_alpha - weighted.index_select(0, maps.rows))
-            de = torch.where(_edge_scores(s_src, s_dst, maps) > 0, de, NEGATIVE_SLOPE * de)
-            d_dst = torch.zeros_like(s_dst).index_add_(0, maps.rows, de)
-            d_src = torch.zeros_like(s_src).index_add_(0, maps.cols, de)
         return dz, d_src, d_dst, None
 
 

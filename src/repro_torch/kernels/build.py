@@ -28,6 +28,7 @@ SOURCES: Dict[str, Path] = {
     "hbp_partials": _HERE / "csrc" / "hbp_partials.cu",
     "hbp_argmax": _HERE / "csrc" / "hbp_argmax.cu",
     "hbp_sddmm": _HERE / "csrc" / "hbp_sddmm.cu",
+    "hbp_softmax": _HERE / "csrc" / "hbp_softmax.cu",
 }
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_ptr, _int, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the exported launchers: pointers and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int)
 _SIGNATURES = {
@@ -55,6 +56,12 @@ _SIGNATURES = {
     },
     "hbp_sddmm": {
         "hbp_sddmm_launch": [_ptr] * 5 + [_int] * 6 + [_ptr],
+    },
+    "hbp_softmax": {
+        "hbp_softmax_forward_launch": [_ptr] * 6 + [_int] * 3 + [_f32] + [_int] * 2 + [_ptr],
+        "hbp_softmax_backward_launch": [_ptr] * 9 + [_int] * 3 + [_f32] + [_int] * 2 + [_ptr],
+        "hbp_softmax_columns_launch": [_ptr] * 5 + [_int] * 5 + [_ptr],
+        "hbp_rewrite_launch": [_ptr] * 3 + [_i64] + [_int] * 2 + [_ptr],
     },
 }
 

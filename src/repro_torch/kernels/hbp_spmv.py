@@ -23,6 +23,12 @@ card.
 :func:`hbp_sddmm` (``csrc/hbp_sddmm.cu``) is GAT's attention gradient,
 one dot product per stored CSR entry and head; it replaces no TPU kernel
 either (the JAX package has no GAT) and walks the CSR, not the tiles.
+So do GAT's edge softmax (``csrc/hbp_softmax.cu``): :func:`hbp_edge_softmax`
+(the attention weights), :func:`hbp_edge_softmax_backward` (the score
+gradient by A's rows) and :func:`hbp_edge_softmax_columns` (its column sums
+by Aᵀ's rows), each row walked by a warp or, where it is long, a block, in
+the order of a :class:`RowWalk`; and :func:`hbp_rewrite`, which writes the
+weights into copies of a tile set's values in the tiles' order.
 
 The four fused wrappers walk the chunk index of
 :class:`~repro_torch.kernels.ops.DeviceTiles`: no thread chains more than
@@ -81,7 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,6 +117,12 @@ __all__ = [
     "hbp_spmm_partials_plain",
     "hbp_spmm_partials_max_plain",
     "hbp_sddmm",
+    "RowWalk",
+    "row_walk",
+    "hbp_edge_softmax",
+    "hbp_edge_softmax_backward",
+    "hbp_edge_softmax_columns",
+    "hbp_rewrite",
 ]
 
 
@@ -633,6 +645,178 @@ def hbp_sddmm(indptr: torch.Tensor, cols: torch.Tensor, dy: torch.Tensor, z: tor
     return out
 
 
+# The edge softmax's launches (csrc/hbp_softmax.cu): a block's threads, the
+# row length above which a row is walked by a whole block and not by a warp,
+# and the most heads a launch takes
+SOFTMAX_THREADS = 512
+SOFTMAX_LONG_ROW = 512
+SOFTMAX_MAX_HEADS = 8
+
+
+class RowWalk(NamedTuple):
+    """The order in which the edge softmax's kernels walk a CSR's rows."""
+
+    order: torch.Tensor  # i32[n_rows]: every row once, longest first (ties by index)
+    n_long: int  # the first n_long rows hold more than SOFTMAX_LONG_ROW entries: a block each
+
+
+def row_walk(indptr: torch.Tensor) -> RowWalk:
+    """The :class:`RowWalk` of a CSR's ``indptr``, on its device."""
+    lengths = indptr[1:] - indptr[:-1]
+    order = torch.argsort(lengths, descending=True, stable=True)
+    return RowWalk(order.to(torch.int32), int((lengths > SOFTMAX_LONG_ROW).sum()))
+
+
+def _check_walk(name: str, indptr, index, walk: RowWalk, device) -> None:
+    """A CSR's ``indptr`` (i64), its entries' ``index`` (i32) and its
+    :class:`RowWalk` as the kernels take them."""
+    if indptr.dtype != torch.int64 or index.dtype != torch.int32 \
+            or walk.order.dtype != torch.int32:
+        raise TypeError(f"{name}: indptr must be int64, the entries' index and the walk int32")
+    n_rows = indptr.numel() - 1
+    if indptr.dim() != 1 or index.dim() != 1 or walk.order.shape != (n_rows,) \
+            or not 0 <= walk.n_long <= n_rows:
+        raise ValueError(f"{name}: the walk's order {tuple(walk.order.shape)} (n_long "
+                         f"{walk.n_long}) is not one entry a row of indptr's {n_rows}")
+    if index.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {index.numel()} entries exceed the kernel's 32-bit count")
+    if any(t.device != device for t in (indptr, index, walk.order)):
+        raise ValueError(f"{name}: every operand must lie on one device")
+
+
+def _check_tables(name: str, device, *tables) -> int:
+    """The heads of float32 tables given as ``(tensor, rows)`` pairs, each
+    ``[rows, heads]``, contiguous and on ``device``; on the card at most
+    ``SOFTMAX_MAX_HEADS`` (the kernels' instances)."""
+    first = tables[0][0]
+    heads = first.shape[1] if first.dim() == 2 else 0
+    limit = SOFTMAX_MAX_HEADS if device.type == "cuda" else heads
+    if not 1 <= heads <= limit:
+        raise ValueError(f"{name}: {heads} heads, the kernels take 1 to {SOFTMAX_MAX_HEADS}")
+    for t, rows in tables:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the scores and weights must be float32")
+        if t.shape != (rows, heads):
+            raise ValueError(f"{name}: a table of shape {tuple(t.shape)} where "
+                             f"({rows}, {heads}) was due")
+        if t.device != device:
+            raise ValueError(f"{name}: every operand must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: every operand must be contiguous")
+    return heads
+
+
+def _softmax_launch(fn_name: str, device, *args) -> None:
+    from .build import library
+
+    err = getattr(library("hbp_softmax"), fn_name)(
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
+
+
+def hbp_edge_softmax(indptr: torch.Tensor, cols: torch.Tensor, walk: RowWalk,
+                     s_src: torch.Tensor, s_dst: torch.Tensor) -> torch.Tensor:
+    """GAT's attention weights over a CSR matrix A (row = destination):
+    ``α[e, h]``, the LeakyReLU (slope :data:`.ref.NEGATIVE_SLOPE`) of
+    ``s_dst[row(e), h] + s_src[cols[e], h]`` softmaxed over its row's
+    entries, ``f32[nnz, heads]`` in CSR order.
+
+    ``indptr`` i64 ``[n_rows + 1]``, ``cols`` i32 ``[nnz]``, ``walk`` its
+    :func:`row_walk`, the scores contiguous float32 ``[n_cols, heads]`` and
+    ``[n_rows, heads]`` (on the card 1 to ``SOFTMAX_MAX_HEADS`` heads), all on one
+    device.  On the card the forward kernel of ``csrc/hbp_softmax.cu``; on
+    the CPU its plain version :func:`.ref.edge_softmax` (whose sums run in
+    another order)."""
+    name = "hbp_edge_softmax"
+    device = s_dst.device
+    _check_walk(name, indptr, cols, walk, device)
+    n_rows, nnz = indptr.numel() - 1, cols.numel()
+    heads = _check_tables(name, device, (s_dst, n_rows), (s_src, s_src.shape[0]))
+    if device.type == "cpu":
+        return _ref.edge_softmax(indptr, cols, s_src, s_dst)
+    alpha = torch.empty((nnz, heads), dtype=torch.float32, device=device)
+    if n_rows:
+        _softmax_launch("hbp_softmax_forward_launch", device, indptr, cols, walk.order, s_src,
+                        s_dst, alpha, n_rows, walk.n_long, heads, _ref.NEGATIVE_SLOPE,
+                        SOFTMAX_THREADS)
+        hbp_edge_softmax.launches += 1
+    return alpha
+
+
+def hbp_edge_softmax_backward(indptr: torch.Tensor, cols: torch.Tensor, walk: RowWalk,
+                              s_src: torch.Tensor, s_dst: torch.Tensor, alpha: torch.Tensor,
+                              d_alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`hbp_edge_softmax` by rows, given ``α`` and
+    its gradient ``ᾱ`` (``f32[nnz, heads]``): ``(de, d_dst)``, the gradient
+    of the edge scores ``de = α (ᾱ - Σ_row α ᾱ)`` (times the slope where
+    the score is not positive), ``[nnz, heads]`` in CSR order, and ``d_dst``,
+    its row sums, ``[n_rows, heads]``.  ``s_src``'s gradient is
+    :func:`hbp_edge_softmax_columns` of ``de``.  On the card one launch; on
+    the CPU :func:`.ref.edge_softmax_backward`."""
+    name = "hbp_edge_softmax_backward"
+    device = s_dst.device
+    _check_walk(name, indptr, cols, walk, device)
+    n_rows, nnz = indptr.numel() - 1, cols.numel()
+    heads = _check_tables(name, device, (s_dst, n_rows), (s_src, s_src.shape[0]),
+                          (alpha, nnz), (d_alpha, nnz))
+    if device.type == "cpu":
+        return _ref.edge_softmax_backward(indptr, cols, s_src, s_dst, alpha, d_alpha)
+    de = torch.empty((nnz, heads), dtype=torch.float32, device=device)
+    d_dst = torch.empty((n_rows, heads), dtype=torch.float32, device=device)
+    if n_rows:
+        _softmax_launch("hbp_softmax_backward_launch", device, indptr, cols, walk.order, s_src,
+                        s_dst, alpha, d_alpha, de, d_dst, n_rows, walk.n_long, heads,
+                        _ref.NEGATIVE_SLOPE, SOFTMAX_THREADS)
+        hbp_edge_softmax_backward.launches += 1
+    return de, d_dst
+
+
+def hbp_edge_softmax_columns(indptr_T: torch.Tensor, perm_T: torch.Tensor, walk_T: RowWalk,
+                             de: torch.Tensor) -> torch.Tensor:
+    """The column sums of ``de`` (``f32[nnz, heads]`` in A's CSR order),
+    ``f32[n_cols, heads]``, walked by Aᵀ's rows: ``indptr_T`` (i64 ``[n_cols
+    + 1]``), ``perm_T`` (i32 ``[nnz]``: Aᵀ's position p holds A's entry
+    ``perm_T[p]``) and Aᵀ's :func:`row_walk`.  On the card one launch, no
+    atomics; on the CPU :func:`.ref.edge_softmax_columns`."""
+    name = "hbp_edge_softmax_columns"
+    device = de.device
+    _check_walk(name, indptr_T, perm_T, walk_T, device)
+    n_cols, nnz = indptr_T.numel() - 1, perm_T.numel()
+    heads = _check_tables(name, device, (de, nnz))
+    if device.type == "cpu":
+        return _ref.edge_softmax_columns(indptr_T, perm_T, de)
+    d_src = torch.empty((n_cols, heads), dtype=torch.float32, device=device)
+    if n_cols:
+        _softmax_launch("hbp_softmax_columns_launch", device, indptr_T, perm_T, walk_T.order,
+                        de, d_src, n_cols, walk_T.n_long, heads, SOFTMAX_THREADS)
+        hbp_edge_softmax_columns.launches += 1
+    return d_src
+
+
+def hbp_rewrite(entry: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``heads`` copies of a tile set's values, ``f32[heads, n_slots]``:
+    slot s of copy h holds ``values[entry[s], h]``, 0 where ``entry[s] <
+    0`` (a padded slot).  ``entry`` is i32 ``[n_slots]`` (each below
+    ``values``' rows), ``values`` contiguous float32 ``[nnz, heads]`` (on the
+    card 1 to ``SOFTMAX_MAX_HEADS`` heads), on one device.  On the card the rewrite
+    kernel of ``csrc/hbp_softmax.cu`` (a thread a slot, in the tiles'
+    order); on the CPU :func:`.ref.rewritten_values` (the same bits)."""
+    name = "hbp_rewrite"
+    device = values.device
+    if entry.dtype != torch.int32 or entry.dim() != 1 or entry.device != device:
+        raise ValueError(f"{name}: the entry map must be int32 [n_slots] on the values' device")
+    heads = _check_tables(name, device, (values, values.shape[0]))
+    if device.type == "cpu":
+        return _ref.rewritten_values(entry, values)
+    data = torch.empty((heads, entry.numel()), dtype=torch.float32, device=device)
+    if entry.numel():
+        _softmax_launch("hbp_rewrite_launch", device, entry, values, data, entry.numel(), heads)
+        hbp_rewrite.launches += 1
+    return data
+
+
 for _wrapper in (
     hbp_spmv_fused,
     hbp_spmm_fused,
@@ -642,6 +826,10 @@ for _wrapper in (
     hbp_spmm_partials,
     hbp_spmm_partials_max,
     hbp_sddmm,
+    hbp_edge_softmax,
+    hbp_edge_softmax_backward,
+    hbp_edge_softmax_columns,
+    hbp_rewrite,
 ):
     _wrapper.launches = 0
 del _wrapper

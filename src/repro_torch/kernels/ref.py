@@ -30,6 +30,7 @@ import contextlib
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "segment_sum_sorted",
@@ -50,6 +51,11 @@ __all__ = [
     "count_traversals",
     "unpermute",
     "sddmm",
+    "NEGATIVE_SLOPE",
+    "rewritten_values",
+    "edge_softmax",
+    "edge_softmax_backward",
+    "edge_softmax_columns",
 ]
 
 _TRAVERSALS = [0]
@@ -454,10 +460,8 @@ def sddmm(indptr: torch.Tensor, cols: torch.Tensor, dy: torch.Tensor, z: torch.T
     ``dy`` and ``z`` ``[n, heads * head_dim]`` (the plain version of
     ``csrc/hbp_sddmm.cu``).  Gathers ``[entries, heads, head_dim]`` rows of
     both in edge blocks of at most ``_SDDMM_BLOCK`` products."""
-    n_rows, nnz = indptr.numel() - 1, cols.numel()
-    width = dy.shape[1]
-    counts = indptr[1:] - indptr[:-1]
-    rows = torch.repeat_interleave(torch.arange(n_rows, device=dy.device), counts)
+    nnz, width = cols.numel(), dy.shape[1]
+    rows = _csr_rows(indptr)
     cols = cols.long()
     out = torch.empty((nnz, heads), dtype=dy.dtype, device=dy.device)
     step = max(1, _SDDMM_BLOCK // max(width, 1))
@@ -466,3 +470,64 @@ def sddmm(indptr: torch.Tensor, cols: torch.Tensor, dy: torch.Tensor, z: torch.T
         b = z[cols[e0:e0 + step]].view(-1, heads, width // heads)
         out[e0:e0 + step] = (a * b).sum(-1)
     return out
+
+
+# GAT's LeakyReLU slope on the edge scores (Veličković et al. 2018)
+NEGATIVE_SLOPE = 0.2
+
+
+def _csr_rows(indptr: torch.Tensor) -> torch.Tensor:
+    """Each stored entry's row (i64 ``[nnz]``) from a CSR's ``indptr``."""
+    n_rows = indptr.numel() - 1
+    return torch.repeat_interleave(torch.arange(n_rows, device=indptr.device),
+                                   indptr[1:] - indptr[:-1])
+
+
+def rewritten_values(entry: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``[heads, n_slots]`` copies of a tile set's values: slot s of copy h
+    holds ``values[entry[s], h]`` (``values`` ``[nnz, heads]``), 0 where
+    ``entry[s] < 0`` (the padding); the plain version of
+    ``csrc/hbp_softmax.cu``'s rewrite."""
+    picked = values.index_select(0, entry.clamp(min=0).long())
+    return torch.where((entry >= 0)[:, None], picked, 0.0).t().contiguous()
+
+
+def _edge_scores(rows, cols, s_src, s_dst) -> torch.Tensor:
+    """``s_dst[row(e)] + s_src[col(e)]``, ``[nnz, H]``: the scores before
+    the LeakyReLU."""
+    return s_dst.index_select(0, rows) + s_src.index_select(0, cols)
+
+
+def edge_softmax(indptr, cols, s_src, s_dst):
+    """GAT's attention weights ``α`` (the plain version of
+    ``csrc/hbp_softmax.cu``'s forward): ``[nnz, H]`` in CSR order (row =
+    destination), the LeakyReLU of the edge scores softmaxed over each
+    row's entries with the row's maximum subtracted."""
+    rows = _csr_rows(indptr)
+    e = F.leaky_relu(_edge_scores(rows, cols, s_src, s_dst), NEGATIVE_SLOPE)
+    top = torch.full_like(s_dst, float("-inf")).scatter_reduce_(
+        0, rows[:, None].expand_as(e), e, "amax")
+    ex = (e - top.index_select(0, rows)).exp_()
+    total = torch.zeros_like(s_dst).index_add_(0, rows, ex)
+    return ex.div_(total.index_select(0, rows))
+
+
+def edge_softmax_backward(indptr, cols, s_src, s_dst, alpha, d_alpha):
+    """The softmax's and LeakyReLU's backward by rows (the plain version of
+    ``csrc/hbp_softmax.cu``'s backward): ``(de, d_dst)`` with ``de = α (ᾱ -
+    Σ_row α ᾱ)``, times the slope where the score is not positive, and
+    ``d_dst`` its row sums."""
+    rows = _csr_rows(indptr)
+    weighted = torch.zeros_like(s_dst).index_add_(0, rows, alpha * d_alpha)
+    de = alpha * (d_alpha - weighted.index_select(0, rows))
+    de = torch.where(_edge_scores(rows, cols, s_src, s_dst) > 0, de, NEGATIVE_SLOPE * de)
+    return de, torch.zeros_like(s_dst).index_add_(0, rows, de)
+
+
+def edge_softmax_columns(indptr_T, perm_T, de):
+    """``d_src``, the column sums of ``de`` (``[n_cols, H]``), over Aᵀ's
+    CSR (``indptr_T``; position p holds A's entry ``perm_T[p]``): each
+    column's entries are added in A's entry order (the plain version of
+    ``csrc/hbp_softmax.cu``'s column launch)."""
+    out = torch.zeros((indptr_T.numel() - 1, de.shape[1]), dtype=de.dtype, device=de.device)
+    return out.index_add_(0, _csr_rows(indptr_T), de.index_select(0, perm_T.long()))

@@ -777,15 +777,86 @@ def test_sddmm_kernel_matches_its_plain_version(cuda, width):
     assert torch.equal(got, hbp_sddmm(indptr, cols, dy, z, heads))  # one order every launch
 
 
+def _softmax_case(cuda, heads):
+    """An R-MAT ``A + I`` with hub rows (above ``SOFTMAX_LONG_ROW``: a block
+    each) and rows that are only their self-loop, its maps on the card,
+    scores and a weight gradient in float32 ``[*, heads]``."""
+    from repro_torch.graph import add_self_loops
+    from repro_torch.kernels import autodiff
+    from repro_torch.kernels.hbp_spmv import SOFTMAX_LONG_ROW
+
+    adj = add_self_loops(rmat(1 << 12, 120_000, seed=8, symmetric=False))
+    assert (np.diff(adj.indptr) > SOFTMAX_LONG_ROW).any() and (np.diff(adj.indptr) == 1).any()
+    cfg = PartitionConfig(row_block=256, col_block=512, group=8, lane=8)
+    maps = autodiff.attention_maps(adj, build_tiles(adj, cfg), build_tiles(adj.transpose(), cfg),
+                                   cuda)
+    g = torch.Generator(device=cuda).manual_seed(heads)
+    n = adj.shape[0]
+    s_src, s_dst = (3 * torch.randn((n, heads), device=cuda, generator=g) for _ in range(2))
+    d_alpha = torch.randn((adj.nnz, heads), device=cuda, generator=g)
+    return maps, s_src, s_dst, d_alpha
+
+
+@pytest.mark.parametrize("heads", [1, 3, 4])
+def test_edge_softmax_kernels_match_their_plain_versions(cuda, heads):
+    """GAT's edge softmax, its backward by rows, its column sums and the
+    rewrite of α into A's and Aᵀ's tile copies on the card against the plain
+    versions in float64 (the kernels add each row in another order; the
+    rewrite copies, bit for bit), twice with the same bits (no atomics),
+    with their launches counted."""
+    from repro_torch.kernels.hbp_spmv import (
+        hbp_edge_softmax,
+        hbp_edge_softmax_backward,
+        hbp_edge_softmax_columns,
+        hbp_rewrite,
+    )
+
+    maps, s_src, s_dst, d_alpha = _softmax_case(cuda, heads)
+    wrappers = (hbp_edge_softmax, hbp_edge_softmax_backward, hbp_edge_softmax_columns,
+                hbp_rewrite)
+
+    def kernels():
+        alpha = hbp_edge_softmax(maps.indptr, maps.cols, maps.walk, s_src, s_dst)
+        de, d_dst = hbp_edge_softmax_backward(maps.indptr, maps.cols, maps.walk, s_src, s_dst,
+                                              alpha, d_alpha)
+        d_src = hbp_edge_softmax_columns(maps.indptr_T, maps.perm_T, maps.walk_T, de)
+        return (alpha, de, d_dst, d_src, hbp_rewrite(maps.entry, alpha),
+                hbp_rewrite(maps.entry_T, alpha))
+
+    before = [w.launches for w in wrappers]
+    got = kernels()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 2]
+    f64 = [t.double() for t in (s_src, s_dst, got[0], d_alpha)]
+    alpha = ref.edge_softmax(maps.indptr, maps.cols, *f64[:2])
+    de, d_dst = ref.edge_softmax_backward(maps.indptr, maps.cols, *f64)
+    d_src = ref.edge_softmax_columns(maps.indptr_T, maps.perm_T, de)
+    for a, b in zip(got, (alpha, de, d_dst, d_src)):
+        _close(a.double(), b)
+    for a, entry in zip(got[4:], (maps.entry, maps.entry_T)):  # α copied as it is
+        assert torch.equal(a, ref.rewritten_values(entry, got[0]))
+        assert int((a != 0).sum()) == int((got[0] != 0).sum())
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels()))  # one order every launch
+    wide = torch.zeros((s_src.shape[0], 9), device=cuda)  # the kernels' instances: 1-8 heads
+    with pytest.raises(ValueError, match="heads"):
+        hbp_edge_softmax(maps.indptr, maps.cols, maps.walk, wide, wide)
+
+
 def test_gat_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     """Three GAT steps through the registry-served pair: the fused sum
-    kernel on the rewritten tiles and the SDDMM kernel on the card, the
-    plain versions on the CPU, from the same weights; rtol 1e-4 as
-    test_training_on_the_card_matches_the_cpu (kernel 2's fused
-    multiply-adds, the card's atomic segment sums)."""
+    kernel on the rewritten tiles, the SDDMM and the edge softmax's kernels
+    on the card, the plain versions on the CPU, from the same weights; rtol
+    1e-4 as test_training_on_the_card_matches_the_cpu (kernel 2's fused
+    multiply-adds, the sums' other orders on the card)."""
     from repro_torch.graph import power_law_graph
     from repro_torch.graph.train import NodeClassifierTrainer
-    from repro_torch.kernels.hbp_spmv import hbp_sddmm
+    from repro_torch.kernels.hbp_spmv import (
+        hbp_edge_softmax,
+        hbp_edge_softmax_backward,
+        hbp_edge_softmax_columns,
+        hbp_rewrite,
+        hbp_sddmm,
+    )
     from repro_torch.serving import MatrixRegistry
 
     adj = power_law_graph(3000, 8.0, seed=6, symmetric=True)
@@ -800,14 +871,18 @@ def test_gat_step_on_the_card_matches_the_cpu(cuda, tmp_path):
         trainer = NodeClassifierTrainer([32, 48, 5], model="gat", heads=3, registry=reg)
         agg = trainer.aggregator(trainer.prepare_adjacency(adj))
         state = trainer.load_state(arrays)
-        before = (hbp_sddmm.launches, hbp_spmm_fused.launches)
+        softmax = (hbp_edge_softmax, hbp_edge_softmax_backward, hbp_edge_softmax_columns,
+                   hbp_rewrite)
+        before = (hbp_sddmm.launches, hbp_spmm_fused.launches, [w.launches for w in softmax])
         readings = []
         for _ in range(3):
             state, out = trainer.step(state, agg, x, labels)
             readings.append((out["loss"], out["grad_norm"]))
-        if dev is cuda:  # 2 layers: one SDDMM and 3 + 3 head products each, a step
+        if dev is cuda:  # 2 layers: one SDDMM, 3 + 3 head products, the
+            # softmax's forward, rows and columns and two rewrites each, a step
             assert hbp_sddmm.launches - before[0] == 3 * 2
             assert hbp_spmm_fused.launches - before[1] == 3 * 2 * 6
+            assert [w.launches - b for w, b in zip(softmax, before[2])] == [6, 6, 6, 12]
         hist[str(dev)] = np.array(readings)
     # AdamW's first steps move a weight by ~lr whatever its gradient's size,
     # so the losses and gradient norms are compared, not the weights
